@@ -1,0 +1,79 @@
+"""gpu-validator entrypoint: the per-node validation chain on CUDA.
+
+Counterpart of ``tpu_operator/cli/validator.py``. Usage:
+    python -m tpu_operator_torch.cli.validator -c driver|runtime|cuda|hbm|nvlink
+    python -m tpu_operator_torch.cli.validator wait <status-file>
+    python -m tpu_operator_torch.cli.validator cleanup
+
+Flags mirror to env vars (WITH_WAIT, MATMUL_SIZE, HBM_THRESHOLD,
+HBM_SIZE_MB, NVLINK_THRESHOLD, NVLINK_SIZE_MB, NVLINK_FULL_SUITE,
+GPU_VALIDATION_DIR). Exit codes: 0 proof passed, 1 proof failed, 2 no
+component given.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+import sys
+import time
+
+from ..validator import barrier, components
+
+# each runs components.validate_<name>
+_COMPONENTS = ("driver", "runtime", "cuda", "hbm", "nvlink")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="gpu-validator",
+                                description="per-node CUDA stack validator")
+    sub = p.add_subparsers(dest="cmd")
+    p.add_argument("-c", "--component", default=None,
+                   choices=_COMPONENTS)
+    p.add_argument("--with-wait", action="store_true",
+                   default=os.environ.get("WITH_WAIT", "").lower() == "true",
+                   help="retry until the proof passes instead of failing")
+    wait = sub.add_parser("wait", help="block until a status file exists")
+    wait.add_argument("status_file")
+    wait.add_argument("--timeout", type=float, default=300.0)
+    sub.add_parser("cleanup", help="remove all validation status files")
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(levelname).1s %(name)s %(message)s")
+    log = logging.getLogger("gpu_validator")
+
+    if args.cmd == "wait":
+        if not barrier.wait_for(args.status_file, timeout=args.timeout):
+            log.error("timed out waiting for %s", args.status_file)
+            return 1
+        return 0
+    if args.cmd == "cleanup":
+        components.component_cleanup()
+        return 0
+
+    comp = args.component
+    if not comp:
+        build_parser().print_help()
+        return 2
+
+    while True:
+        try:
+            info = getattr(components, f"validate_{comp}")()
+            log.info("%s validation OK: %s", comp, info)
+            return 0
+        except components.ValidationFailed as e:
+            log.error("%s validation failed: %s", comp, e)
+            if not args.with_wait:
+                return 1
+            time.sleep(barrier.RETRY_INTERVAL_S)
+        except KeyboardInterrupt:
+            return 130
+
+
+if __name__ == "__main__":
+    sys.exit(main())
