@@ -3,20 +3,29 @@
 
     python3 chip_smoke.py        # from the root of a checkout, on a CUDA host
 
-The main path is the per-node validation chain (driver -> runtime -> cuda
--> hbm -> nvlink) of ``tpu_operator_torch``, run through its CLI at the
-DaemonSet's sizes (MATMUL_SIZE=4096, HBM_SIZE_MB=512). Phases, each fatal:
+Two paths of ``tpu_operator_torch`` are driven. The per-node validation
+chain (driver -> runtime -> cuda -> hbm -> nvlink) runs through its CLI at
+the DaemonSet's sizes (MATMUL_SIZE=4096, HBM_SIZE_MB=512). The
+long-context path runs ring and Ulysses attention through
+``ringattention``'s harness over every visible card, the ring's
+flash-kernel hop at a 32k-token context, and ``flash_attention`` forward
+and backward. Phases, each fatal:
 
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-2. build the hand-written kernels from the checkout's sources;
-3. hold each kernel against its plain PyTorch version on the card, at the
-   main path's shape, a ragged length and a misaligned view;
-4. run the validator chain with every launch count set to 0, and require
-   that the chain went through each kernel and wrote every barrier file;
+2. build the hand-written kernels from the checkout's sources, one nvcc
+   per source, all at once;
+3. hold each kernel against its plain PyTorch version on the card: the
+   triad at the main path's shape, a ragged length and a misaligned view;
+   flash attention at the harness's and the long context's shapes, a
+   ragged length, a block wholly in the future and a two-block merge;
+4. run the validator chain with the triad's count set to 0, and require
+   that the chain went through the kernel and wrote every barrier file;
 5. run the collective suite over NCCL at world size 1 against its oracle;
-6. time each kernel beside its bound, its plain version and the library
+6. run the long-context path with the flash kernel's count set to 0, and
+   require that it is correct and went through the kernel;
+7. time each kernel beside its bound, its plain version and the library
    call computing the same function, and the matmul proof;
-7. print the kernel table as one JSON line.
+8. print the kernel table as one JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``; on any failure the
 script exits non-zero and prints no such line. Imports nothing of JAX.
@@ -24,6 +33,7 @@ script exits non-zero and prints no such line. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import os
 import shutil
@@ -48,6 +58,33 @@ TRIAD_LAUNCHES_PER_HBM_PROOF = 2 + 3 * 2 + 3 * 26
 # H100 SXM peak for f32 outside the tensor cores (data sheet), for the
 # operations side of the triad's bound
 F32_PEAK_TFLOPS = 67.0
+
+KERNELS = ("triad", "flash_attention")
+# flash attention [B, S, H, D]: ringattention.run()'s defaults, and a 32k
+# context of 8 heads of 128, which long-context training runs
+FLASH_RUN_SHAPE = (1, 2048, 8, 64)
+FLASH_LONG_SHAPE = (1, 32768, 8, 128)
+# kernel vs plain version, bf16 inputs. The kernel rounds P to bf16 for
+# P.V, where the plain version keeps it f32, and both round out to bf16:
+# out may differ by one bf16 step, 1.6e-2 where |out| is in [2, 4), so the
+# abs limit is 2e-2. That alone would pass a wrong late row, whose values
+# are a few hundredths, so each row [.., D] of out is also held to
+# ||o - ro|| / ||ro|| <= 2**-7, one bf16 step of the row: rounding noise
+# is a fixed share of the row, a dropped or misplaced K/V chunk a share
+# of about sqrt(D / keys seen). m and l, f32 row statistics, agreed
+# within 3e-6 on the H100, so 1e-4 leaves a margin of 30
+FLASH_OUT_TOL = 2e-2
+FLASH_OUT_ROW_RTOL = 2.0 ** -7
+FLASH_M_TOL = 1e-4
+FLASH_L_RTOL = 1e-4
+# logged, not gated: the largest |o - ro| / (atol + rtol * |ro|) with
+# atol 1e-3 and rtol 2**-7. The rounding of P scales with the weighted
+# |v| of a row, not with |out|, so where a row's values cancel this
+# reads above 1 on a right output
+FLASH_ELEM_ATOL, FLASH_ELEM_RTOL = 1e-3, 2.0 ** -7
+# flash_attention's bf16 forward and backward against autograd of the f32
+# oracle, the tolerance of the JAX package's bf16 gradient test
+FLASH_GRAD_RTOL, FLASH_GRAD_ATOL = 0.05, 0.02
 
 
 def log(msg: str) -> None:
@@ -100,6 +137,190 @@ def check_triad(torch, hbm_probe, dev, gen, shape, offset: int) -> float:
     return err
 
 
+def flash_inputs(torch, dev, gen, bh, sq, sk, d):
+    return tuple(torch.randn((bh, s, d), generator=gen, device=dev)
+                 .to(torch.bfloat16) for s in (sq, sk, sk))
+
+
+def out_errors(ra, o, ro) -> dict:
+    """max abs error, worst row's relative error and (logged only) the
+    largest elementwise ratio of out against its plain version."""
+    d = (o.float() - ro.float()).abs()
+    return {"out": d.max().item(), "out_row_rel": ra.row_rel_err(o, ro),
+            "out_elem_ratio": (d / (FLASH_ELEM_ATOL + FLASH_ELEM_RTOL
+                                    * ro.float().abs())).max().item()}
+
+
+def require_flash_close(label, errs) -> None:
+    log(f"  flash {label}: max_abs_err out={errs['out']!r} "
+        f"m={errs.get('m')!r} l_rel={errs.get('l_rel')!r}; out row "
+        f"rel={errs['out_row_rel']!r}, elementwise ratio (logged) "
+        f"{errs['out_elem_ratio']!r} (tolerances out {FLASH_OUT_TOL} abs "
+        f"and {FLASH_OUT_ROW_RTOL} a row, m {FLASH_M_TOL}, l {FLASH_L_RTOL})")
+    if not (errs["out"] <= FLASH_OUT_TOL
+            and errs["out_row_rel"] <= FLASH_OUT_ROW_RTOL
+            and errs.get("m", 0.0) <= FLASH_M_TOL
+            and errs.get("l_rel", 0.0) <= FLASH_L_RTOL):
+        raise RuntimeError(f"flash kernel disagrees with its plain version "
+                           f"on {label}: {errs}")
+
+
+def check_flash(torch, fa, ra, dev, gen, label, bh, sq, sk, d, q_offset=0,
+                k_offset=0, causal=True) -> dict:
+    """Kernel vs plain version on seeded bf16 inputs; returns the errors."""
+    q, k, v = flash_inputs(torch, dev, gen, bh, sq, sk, d)
+    o, m, l = fa.flash_attention_blocks(q, k, v, q_offset, k_offset, causal)
+    ro, rm, rl = fa.flash_attention_blocks_reference(
+        q, k, v, q_offset, k_offset, causal, q_tile=4096)
+    torch.cuda.synchronize()
+    live = rl > 0
+    errs = dict(out_errors(ra, o, ro), m=(m - rm).abs().max().item(),
+                l_rel=((l - rl).abs()[live] / rl[live]).max().item()
+                if bool(live.any()) else (l - rl).abs().max().item())
+    require_flash_close(f"{label} [{bh}, {sq}|{sk}, {d}] offsets="
+                        f"({q_offset}, {k_offset}) causal={causal}", errs)
+    return errs
+
+
+def check_flash_future_block(torch, fa, dev, gen, bh, s, d) -> None:
+    """A K block after every query: out, l == 0 and m == -1e30 exactly."""
+    q, k, v = flash_inputs(torch, dev, gen, bh, s, s, d)
+    o, m, l = fa.flash_attention_blocks(q, k, v, 0, s, True)
+    torch.cuda.synchronize()
+    exact = (bool((o == 0).all()) and bool((l == 0).all())
+             and bool((m == fa.NEG_INF).all()))
+    log(f"  flash fully-future block [{bh}, {s}, {d}] k_offset={s}: "
+        f"out==0, l==0, m==-1e30 exactly: {exact}")
+    if not exact:
+        raise RuntimeError("flash kernel: a fully-future block is not empty")
+
+
+def check_flash_merge(torch, fa, ra, dev, gen, shape) -> dict:
+    """The two halves of K, each a ring hop's flash tile, folded by the
+    ring's own merge, against the plain version over the whole; returns
+    the errors of out."""
+    B, S, H, D = shape
+    q, k, v = (torch.randn(shape, generator=gen, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    h = S // 2
+    o = torch.zeros(shape, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, H, S), dtype=torch.float32, device=dev)
+    m = l + fa.NEG_INF
+    for k0 in (0, h):
+        blk = ra._block_attend_flash(q, k[:, k0:k0 + h], v[:, k0:k0 + h],
+                                     0, k0, True)
+        o, l, m = ra.merge(o, l, m, *blk)
+    merged = o / torch.where(l == 0, 1.0, l).transpose(1, 2)[..., None]
+    fold = lambda t: t.transpose(1, 2).reshape(B * H, S, D)
+    want, _, _ = fa.flash_attention_blocks_reference(
+        fold(q), fold(k), fold(v), 0, 0, True, q_tile=4096)
+    torch.cuda.synchronize()
+    errs = out_errors(ra, fold(merged), want)
+    require_flash_close(f"two-block merge {list(shape)}", errs)
+    return errs
+
+
+def check_flash_attention_grad(torch, fa, ra, dev, gen) -> dict:
+    """flash_attention forward and backward (bf16) against autograd of the
+    f32 oracle on the same inputs and a seeded cotangent."""
+    shape = FLASH_RUN_SHAPE
+    base = [torch.randn(shape, generator=gen, device=dev) for _ in range(3)]
+    w = torch.randn(shape, generator=gen, device=dev)
+    xs = [t.to(torch.bfloat16).requires_grad_() for t in base]
+    refs = [t.to(torch.bfloat16).float().requires_grad_() for t in base]
+    out = fa.flash_attention(*xs)
+    (out.float() * w).sum().backward()
+    want = ra.reference_attention(*refs)
+    (want * w).sum().backward()
+    torch.cuda.synchronize()
+    errs = {"out": (out.float() - want).abs().max().item()}
+    ok = errs["out"] <= FLASH_OUT_TOL
+    for name, x, r in zip("qkv", xs, refs):
+        g, rg = x.grad.float(), r.grad
+        errs[f"d{name}"] = (g - rg).abs().max().item()
+        ok = ok and x.grad.dtype == torch.bfloat16 and bool(
+            ((g - rg).abs() <= FLASH_GRAD_ATOL + FLASH_GRAD_RTOL
+             * rg.abs()).all())
+    log(f"  flash_attention {list(shape)} fwd+bwd vs autograd of the f32 "
+        f"oracle: {errs} (out {FLASH_OUT_TOL}; grads rtol {FLASH_GRAD_RTOL}"
+        f" atol {FLASH_GRAD_ATOL})")
+    if not ok:
+        raise RuntimeError(f"flash_attention forward/backward disagrees: {errs}")
+    return errs
+
+
+def long_context_path(torch, mesh, ra, n_cards: int) -> tuple:
+    """ringattention's per-rank body for both strategies at run()'s
+    defaults and the flash ring at the long shape, one rank per card;
+    returns rank 0's results, the flash ring's worst row error and the
+    flash launches summed over the ranks."""
+    def shape(b, s, h, d):
+        return dict(seq_len=s, n_heads=h, head_dim=d, batch=b)
+
+    cases = [dict(strategy="ring", **shape(*FLASH_RUN_SHAPE)),
+             dict(strategy="ulysses", **shape(*FLASH_RUN_SHAPE)),
+             dict(strategy="ring", use_flash=True,
+                  **shape(*FLASH_LONG_SHAPE))]
+    ranks = mesh.spawn(ra.context_parallel_rank, n_cards, "cuda",
+                       args=(cases,), timeout_s=600)
+    launches = sum(rep.launches for rank in ranks for rep in rank)
+    for case, rep in zip(cases, ranks[0]):
+        log(f"  {case}: {rep.result} row_rel_err={rep.row_rel_err!r}")
+        if not rep.result.correct:
+            raise RuntimeError(f"context-parallel {case} failed: {rep}")
+    # the flash ring's rows past the first shard see thousands of keys and
+    # hold values of a few hundredths, below the harness's 2e-2: each row
+    # is held to the plain version as the kernel is
+    flash = ranks[0][2]
+    if not flash.row_rel_err <= FLASH_OUT_ROW_RTOL:
+        raise RuntimeError(f"the flash ring's rows disagree with the plain "
+                           f"version: {flash.row_rel_err!r} > "
+                           f"{FLASH_OUT_ROW_RTOL}")
+    return [rep.result for rep in ranks[0]], flash.row_rel_err, launches
+
+
+def flash_bound(spec, bh, s, d) -> tuple:
+    """(bound_ms, bound_by) of one causal [bh, s, d] bf16 attend: two
+    products over the s*(s+1)/2 visible pairs against the bf16 peak, and
+    q, k, v read and out written in bf16, m and l written in f32."""
+    flops = 4.0 * bh * d * s * (s + 1) / 2
+    nbytes = 4 * bh * s * d * 2 + 2 * bh * s * 4
+    ops_ms = flops / (spec.peak_bf16_tflops * 1e12) * 1e3
+    bytes_ms = nbytes / (spec.hbm_bw_gbps * 1e9) * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
+                                   else "bytes")
+
+
+def time_flash(torch, fa, dev, gen, spec, shape, plain_iters) -> dict:
+    """Kernel, plain version and SDPA on one causal [B*H, S, D] block."""
+    B, S, H, D = shape
+    bh = B * H
+    q, k, v = flash_inputs(torch, dev, gen, bh, S, S, D)
+    q4, k4, v4 = (t[None] for t in (q, k, v))
+
+    def kernel():
+        fa.flash_attention_blocks(q, k, v, 0, 0, True)
+
+    def plain():
+        fa.flash_attention_blocks_reference(q, k, v, 0, 0, True)
+
+    def library():
+        torch.nn.functional.scaled_dot_product_attention(q4, k4, v4,
+                                                         is_causal=True)
+
+    plain_runs = [cuda_ms(torch, plain, iters=plain_iters, warmup=1)]
+    kernel_runs = [cuda_ms(torch, kernel), cuda_ms(torch, kernel)]
+    plain_runs.append(cuda_ms(torch, plain, iters=plain_iters, warmup=1))
+    library_ms = cuda_ms(torch, library)
+    bound_ms, bound_by = flash_bound(spec, bh, S, D)
+    ms = min(kernel_runs)
+    return {"shape": list(shape), "ms": ms, "ms_runs": kernel_runs,
+            "plain_ms": min(plain_runs), "plain_ms_runs": plain_runs,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "fraction_of_bound": bound_ms / ms,
+            "tflops": 4.0 * bh * D * S * (S + 1) / 2 / (ms * 1e-3) / 1e12}
+
+
 def run_validator_chain(cli, barrier) -> dict:
     """The port's validator CLI, in process, one component at a time;
     returns each barrier file's contents."""
@@ -131,8 +352,11 @@ def main() -> int:
 
     from tpu_operator_torch.cli import validator as cli
     from tpu_operator_torch.kernels import build
+    from tpu_operator_torch.parallel import mesh
     from tpu_operator_torch.validator import barrier
-    from tpu_operator_torch.workloads import collectives, hbm_probe, matmul
+    from tpu_operator_torch.workloads import (collectives, hbm_probe, matmul,
+                                              ringattention)
+    from tpu_operator_torch.workloads import flashattention as fa
     from tpu_operator_torch.workloads.hardware import CHIPS, chip_spec_for
 
     # 1. the card
@@ -150,10 +374,12 @@ def main() -> int:
 
     # 2. build
     log("# phase 2: build")
-    built = build.build("triad")
-    log(f"  triad: {built.path.name} built in {built.seconds:.2f}s")
-    for line in built.log.splitlines():
-        log(f"    {line}")
+    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
+        builds = dict(zip(KERNELS, pool.map(build.build, KERNELS)))
+    for name, built in builds.items():
+        log(f"  {name}: {built.path.name} built in {built.seconds:.2f}s")
+        for line in built.log.splitlines():
+            log(f"    {line}")
 
     # 3. kernels against their plain versions
     log("# phase 3: kernels vs plain versions")
@@ -162,6 +388,24 @@ def main() -> int:
     triad_err = max(check_triad(torch, hbm_probe, dev, gen, TRIAD_SHAPE, 0),
                     check_triad(torch, hbm_probe, dev, gen, ragged, 0),
                     check_triad(torch, hbm_probe, dev, gen, TRIAD_SHAPE, 1))
+    B, S, H, D = FLASH_RUN_SHAPE
+    LB, LS, LH, LD = FLASH_LONG_SHAPE
+    ra = ringattention
+    flash_errs = [
+        check_flash(torch, fa, ra, dev, gen, "run() shape", B * H, S, S, D),
+        check_flash(torch, fa, ra, dev, gen, "run() shape", B * H, S, S, D,
+                    causal=False),
+        check_flash(torch, fa, ra, dev, gen, "long context", LB * LH, LS, LS,
+                    LD),
+        check_flash(torch, fa, ra, dev, gen, "ragged", 8, 1000, 1000, 128),
+        check_flash(torch, fa, ra, dev, gen, "ragged", 8, 1000, 1000, 64,
+                    causal=False),
+        check_flash(torch, fa, ra, dev, gen, "ring hop", 8, 1000, 600, 128,
+                    q_offset=2000, k_offset=1700),
+        check_flash_merge(torch, fa, ra, dev, gen, FLASH_RUN_SHAPE)]
+    flash_err = max(e["out"] for e in flash_errs)
+    flash_row_rel = max(e["out_row_rel"] for e in flash_errs)
+    check_flash_future_block(torch, fa, dev, gen, B * H, S, D)
 
     # 4. the main path, counted
     log("# phase 4: validator chain")
@@ -194,8 +438,26 @@ def main() -> int:
         if not r.correct:
             raise RuntimeError(f"collective {op} failed its oracle")
 
-    # 6. timings
-    log("# phase 6: timings")
+    # 6. the long-context path, counted: the ranks are fresh processes
+    # whose counts start at 0, and report their own
+    log(f"# phase 6: long-context path over {torch.cuda.device_count()} "
+        f"card(s)")
+    torch.cuda.empty_cache()
+    fa.flash_attention_blocks.launches = 0
+    t0 = time.perf_counter()
+    cp_results, ring_row_rel, rank_launches = long_context_path(
+        torch, mesh, ringattention, torch.cuda.device_count())
+    grad_errs = check_flash_attention_grad(torch, fa, ringattention, dev, gen)
+    flash_launches = rank_launches + fa.flash_attention_blocks.launches
+    log(f"  flash launches on the path: {flash_launches} ({rank_launches} "
+        f"in the ranks, {fa.flash_attention_blocks.launches} in "
+        f"flash_attention) in {time.perf_counter() - t0:.1f}s")
+    if rank_launches == 0 or fa.flash_attention_blocks.launches == 0:
+        raise RuntimeError("the long-context path did not launch the flash "
+                           "kernel")
+
+    # 7. timings
+    log("# phase 7: timings")
     a = torch.randn(TRIAD_SHAPE, generator=gen, device=dev)
     b = torch.randn(TRIAD_SHAPE, generator=gen, device=dev)
     n = a.numel()
@@ -225,6 +487,10 @@ def main() -> int:
     mm = matmul.run(size=MATMUL_SIZE, iters=32, calls=8, repeats=3, device=dev)
     if not mm.checksum_ok:
         raise RuntimeError("matmul produced non-finite values")
+    flash_run = time_flash(torch, fa, dev, gen, spec, FLASH_RUN_SHAPE,
+                           plain_iters=5)
+    flash_long = time_flash(torch, fa, dev, gen, spec, FLASH_LONG_SHAPE,
+                            plain_iters=2)
     timings = {
         "card": card,
         "triad": {"shape": list(TRIAD_SHAPE), "ms": kernel_ms,
@@ -236,10 +502,13 @@ def main() -> int:
         "matmul": {"size": mm.size, "iters": mm.iters, "calls": mm.calls,
                    "tflops": mm.tflops, "peak_tflops": mm.peak_tflops,
                    "utilization": mm.utilization},
+        "flash_attention": {"run_shape": flash_run, "long_shape": flash_long,
+                            "grad_check": grad_errs},
+        "context_parallel": [r.__dict__ for r in cp_results],
     }
     log(json.dumps(timings))
 
-    # 7. the kernel table
+    # 8. the kernel table
     kernels = [{
         "name": "triad",
         "route": "cuda",
@@ -253,6 +522,23 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": library_ms,
+    }, {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "tpu_operator_torch/csrc/flash_attention.cu",
+        "replaces": "tpu_operator/workloads/flashattention.py:35",
+        "launches": flash_launches,
+        "max_abs_err": flash_err,
+        "tolerance": FLASH_OUT_TOL,
+        "max_row_rel_err": flash_row_rel,
+        "row_rtol": FLASH_OUT_ROW_RTOL,
+        "ring_row_rel_err": ring_row_rel,
+        "shape": flash_long["shape"],
+        "ms": flash_long["ms"],
+        "plain_ms": flash_long["plain_ms"],
+        "bound_ms": flash_long["bound_ms"],
+        "bound_by": flash_long["bound_by"],
+        "library_ms": flash_long["library_ms"],
     }]
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

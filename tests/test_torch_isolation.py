@@ -54,6 +54,8 @@ def test_port_imports_without_jax_or_the_jax_package():
         "tpu_operator_torch.workloads.hbm_probe",
         "tpu_operator_torch.workloads.matmul",
         "tpu_operator_torch.workloads.collectives",
+        "tpu_operator_torch.workloads.flashattention",
+        "tpu_operator_torch.workloads.ringattention",
         "tpu_operator_torch.parallel.mesh",
         "tpu_operator_torch.validator.barrier",
         "tpu_operator_torch.validator.components",

@@ -15,6 +15,7 @@ hanging it.
 from __future__ import annotations
 
 import datetime
+import os
 import queue
 import socket
 import time
@@ -46,6 +47,9 @@ def init_ring(rank: int, world_size: int, init_method: str,
         kwargs["device_id"] = dev  # binds the NCCL communicator to the card
     else:
         dev = torch.device("cpu")
+        # the ranks share the host's cores: an equal share each keeps
+        # torch's thread pools from spinning against one another
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world_size))
     dist.init_process_group(
         "nccl" if device_type == "cuda" else "gloo",
         init_method=init_method, rank=rank,
