@@ -13,18 +13,22 @@ and backward. Phases, each fatal:
 
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
 2. build the hand-written kernels from the checkout's sources, one nvcc
-   per source, all at once;
+   per source, all at once; the flash kernel's two instantiations must
+   spill nothing and keep their setmaxnreg (no ptxas warning C7508);
 3. hold each kernel against its plain PyTorch version on the card: the
    triad at the main path's shape, a ragged length and a misaligned view;
-   flash attention at the harness's and the long context's shapes, a
-   ragged length, a block wholly in the future and a two-block merge;
+   flash attention at the harness's and the long context's shapes, ragged
+   lengths (also multiples of 64 that are not of 128), ring-hop offsets,
+   rows that see no key inside a live block (exact), a block wholly in
+   the future (exact), non-causal D=128 and a two-block merge;
 4. run the validator chain with the triad's count set to 0, and require
    that the chain went through the kernel and wrote every barrier file;
 5. run the collective suite over NCCL at world size 1 against its oracle;
 6. run the long-context path with the flash kernel's count set to 0, and
    require that it is correct and went through the kernel;
 7. time each kernel beside its bound, its plain version and the library
-   call computing the same function, and the matmul proof;
+   call computing the same function, the matmul proof, and the parts of
+   the flash ring's call on one card (fold, kernel, merge);
 8. print the kernel table as one JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``; on any failure the
@@ -36,6 +40,7 @@ from __future__ import annotations
 import concurrent.futures
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -137,6 +142,28 @@ def check_triad(torch, hbm_probe, dev, gen, shape, offset: int) -> float:
     return err
 
 
+def check_flash_build(log_text: str) -> dict:
+    """ptxas's report of the flash kernel: bytes spilled (stores, loads)
+    per instantiation, by head width. Fails unless both widths are there
+    with nothing spilled, or where ptxas ignored setmaxnreg (C7508)."""
+    spills, width = {}, None
+    for line in log_text.splitlines():
+        if "Function properties for" in line:
+            found = re.search(r"flash_fwdILi(\d+)E", line)
+            width = int(found.group(1)) if found else None
+        elif width is not None and "spill stores" in line:
+            spills[width] = tuple(int(n) for n in re.findall(
+                r"(\d+) bytes spill (?:stores|loads)", line))
+            width = None
+    log(f"  flash_fwd spills (stores, loads) by head width: {spills}")
+    if "C7508" in log_text or "setmaxnreg ignored" in log_text:
+        raise RuntimeError("ptxas ignored setmaxnreg in the flash kernel")
+    if sorted(spills) != [64, 128] or any(any(v) for v in spills.values()):
+        raise RuntimeError(f"flash kernel spills or lacks an instantiation: "
+                           f"{spills}")
+    return spills
+
+
 def flash_inputs(torch, dev, gen, bh, sq, sk, d):
     return tuple(torch.randn((bh, s, d), generator=gen, device=dev)
                  .to(torch.bfloat16) for s in (sq, sk, sk))
@@ -166,13 +193,25 @@ def require_flash_close(label, errs) -> None:
 
 
 def check_flash(torch, fa, ra, dev, gen, label, bh, sq, sk, d, q_offset=0,
-                k_offset=0, causal=True) -> dict:
-    """Kernel vs plain version on seeded bf16 inputs; returns the errors."""
+                k_offset=0, causal=True, dead_rows=0) -> dict:
+    """Kernel vs plain version on seeded bf16 inputs; returns the errors.
+    The first ``dead_rows`` rows see no key: there out == 0, l == 0 and
+    m == -1e30 exactly."""
     q, k, v = flash_inputs(torch, dev, gen, bh, sq, sk, d)
     o, m, l = fa.flash_attention_blocks(q, k, v, q_offset, k_offset, causal)
     ro, rm, rl = fa.flash_attention_blocks_reference(
         q, k, v, q_offset, k_offset, causal, q_tile=4096)
     torch.cuda.synchronize()
+    if dead_rows:
+        exact = (bool((o[:, :dead_rows] == 0).all())
+                 and bool((l[:, :dead_rows] == 0).all())
+                 and bool((m[:, :dead_rows] == fa.NEG_INF).all())
+                 and bool((l[:, dead_rows:] > 0).all()))
+        log(f"  flash {label}: rows 0..{dead_rows - 1} out==0, l==0, "
+            f"m==-1e30 exactly and later rows live: {exact}")
+        if not exact:
+            raise RuntimeError(f"flash kernel: the dead rows of {label} are "
+                               f"not exactly empty")
     live = rl > 0
     errs = dict(out_errors(ra, o, ro), m=(m - rm).abs().max().item(),
                 l_rel=((l - rl).abs()[live] / rl[live]).max().item()
@@ -321,6 +360,46 @@ def time_flash(torch, fa, dev, gen, spec, shape, plain_iters) -> dict:
             "tflops": 4.0 * bh * D * S * (S + 1) / 2 / (ms * 1e-3) / 1e12}
 
 
+def time_ring_parts(torch, fa, ra, dev, gen) -> dict:
+    """The one-card flash ring's call at the long shape, part by part
+    with CUDA events: the fold of q, k, v to contiguous [B*H, S, D] (the
+    copies that ``flash_attention_blocks`` makes of the folded views),
+    kernel B2, the unfold of its output (out * l back to [B, S, H, D]),
+    the merge into the running state, and the rest of the call (the
+    running state's zeros and the final division)."""
+    B, S, H, D = FLASH_LONG_SHAPE
+    q, k, v = (torch.randn(FLASH_LONG_SHAPE, generator=gen, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    fold = lambda t: t.transpose(1, 2).reshape(B * H, -1, D).contiguous()
+    fq, fk, fv = fold(q), fold(k), fold(v)
+    out, m, l = fa.flash_attention_blocks(fq, fk, fv, 0, 0, True)
+    blk = ra._block_attend_flash(q, k, v, 0, 0, True)
+    o0 = torch.zeros(FLASH_LONG_SHAPE, dtype=torch.float32, device=dev)
+    l0 = torch.zeros((B, H, S), dtype=torch.float32, device=dev)
+    m0 = l0 + fa.NEG_INF
+
+    def rest():
+        o = torch.zeros_like(q, dtype=torch.float32)
+        lz = torch.zeros((B, H, S), dtype=torch.float32, device=dev)
+        return lz + fa.NEG_INF, (o / torch.where(
+            lz == 0.0, 1.0, lz).transpose(1, 2)[..., None]).to(q.dtype)
+
+    parts = {
+        "fold_ms": cuda_ms(torch, lambda: (fold(q), fold(k), fold(v))),
+        "kernel_ms": cuda_ms(
+            torch, lambda: fa.flash_attention_blocks(fq, fk, fv, 0, 0, True)),
+        "unfold_ms": cuda_ms(torch, lambda: (out.float() * l[..., None])
+                             .reshape(B, H, S, D).transpose(1, 2)),
+        "merge_ms": cuda_ms(torch, lambda: ra.merge(o0, l0, m0, *blk)),
+        "rest_ms": cuda_ms(torch, rest),
+    }
+    parts["sum_ms"] = sum(parts[key] for key in (
+        "fold_ms", "kernel_ms", "unfold_ms", "merge_ms", "rest_ms"))
+    log(f"  flash ring call at {list(FLASH_LONG_SHAPE)} on one card, by "
+        f"part: {parts}")
+    return parts
+
+
 def run_validator_chain(cli, barrier) -> dict:
     """The port's validator CLI, in process, one component at a time;
     returns each barrier file's contents."""
@@ -380,6 +459,7 @@ def main() -> int:
         log(f"  {name}: {built.path.name} built in {built.seconds:.2f}s")
         for line in built.log.splitlines():
             log(f"    {line}")
+    flash_spills = check_flash_build(builds["flash_attention"].log)
 
     # 3. kernels against their plain versions
     log("# phase 3: kernels vs plain versions")
@@ -402,6 +482,15 @@ def main() -> int:
                     causal=False),
         check_flash(torch, fa, ra, dev, gen, "ring hop", 8, 1000, 600, 128,
                     q_offset=2000, k_offset=1700),
+        # multiples of 64 that are not of 128: a half-empty last Q tile
+        # and K/V chunk
+        check_flash(torch, fa, ra, dev, gen, "ragged", 8, 4160, 4160, 128),
+        # a ring hop whose first 60 rows see no key, inside a block whose
+        # later rows do
+        check_flash(torch, fa, ra, dev, gen, "dead rows", 8, 1000, 1000, 128,
+                    q_offset=1700, k_offset=1760, dead_rows=60),
+        check_flash(torch, fa, ra, dev, gen, "non-causal", 8, 4096, 4096,
+                    128, causal=False),
         check_flash_merge(torch, fa, ra, dev, gen, FLASH_RUN_SHAPE)]
     flash_err = max(e["out"] for e in flash_errs)
     flash_row_rel = max(e["out_row_rel"] for e in flash_errs)
@@ -491,6 +580,7 @@ def main() -> int:
                            plain_iters=5)
     flash_long = time_flash(torch, fa, dev, gen, spec, FLASH_LONG_SHAPE,
                             plain_iters=2)
+    ring_parts = time_ring_parts(torch, fa, ringattention, dev, gen)
     timings = {
         "card": card,
         "triad": {"shape": list(TRIAD_SHAPE), "ms": kernel_ms,
@@ -503,7 +593,9 @@ def main() -> int:
                    "tflops": mm.tflops, "peak_tflops": mm.peak_tflops,
                    "utilization": mm.utilization},
         "flash_attention": {"run_shape": flash_run, "long_shape": flash_long,
-                            "grad_check": grad_errs},
+                            "grad_check": grad_errs,
+                            "ptxas_spills": flash_spills,
+                            "ring_call_parts": ring_parts},
         "context_parallel": [r.__dict__ for r in cp_results],
     }
     log(json.dumps(timings))
@@ -539,6 +631,8 @@ def main() -> int:
         "bound_ms": flash_long["bound_ms"],
         "bound_by": flash_long["bound_by"],
         "library_ms": flash_long["library_ms"],
+        "library_ratio": flash_long["ms"] / flash_long["library_ms"],
+        "fraction_of_bound": flash_long["fraction_of_bound"],
     }]
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

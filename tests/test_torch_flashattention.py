@@ -93,6 +93,35 @@ class TestBlocks:
             assert np.all(l == 0.0)
             assert np.all(m == np.float32(fa.NEG_INF))
 
+    @pytest.mark.parametrize("d", [64, 128])
+    @pytest.mark.parametrize("sq, sk, q_offset, k_offset, causal", [
+        (300, 260, 0, 0, True),        # ragged: no length a multiple of 128
+        (300, 260, 0, 0, False),
+        (300, 260, 300, 170, True),    # ring offsets off the 128 grid
+        (300, 260, 100, 160, True),    # rows 0..59 of a live block see no key
+    ])
+    def test_kernel_tiles_match_jax(self, sq, sk, q_offset, k_offset, causal,
+                                    d):
+        # the plain version at kernel B2's tiles (128 query rows, 128-key
+        # chunks) against the Pallas kernel in one tile, where those tiles
+        # break: ragged ends, offsets that are not multiples of 128 and
+        # rows that see no key inside a block that others see
+        rng = np.random.default_rng(sq + sk + q_offset + d)
+        q, k, v = (rng.standard_normal((2, s, d), dtype=np.float32)
+                   for s in (sq, sk, sk))
+        port = [to_numpy(t) for t in fa.flash_attention_blocks(
+            to_torch(q, "cpu"), to_torch(k, "cpu"), to_torch(v, "cpu"),
+            q_offset, k_offset, causal=causal, q_tile=128, chunk=128)]
+        ref = [np.asarray(t) for t in jax_fa.flash_attention_blocks(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), q_offset,
+            k_offset, causal=causal, q_tile=sq, chunk=sk, interpret=True)]
+        assert_blocks_close(port, ref)
+        dead = max(0, k_offset - q_offset) if causal else 0
+        for o, m, l in (port, ref):
+            assert np.all(o[:, :dead] == 0.0) and np.all(l[:, :dead] == 0.0)
+            assert np.all(m[:, :dead] == np.float32(fa.NEG_INF))
+            assert np.all(l[:, dead:] > 0.0)
+
     def test_two_blocks_merge_into_the_whole(self):
         # the ring merge's contract: (out, m, l) of two K halves combine
         # into attention over all of K

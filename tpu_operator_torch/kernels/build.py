@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` exposes plain C entry points and is compiled by
 ``nvcc`` alone (no PyTorch headers, so a build takes seconds) into
 ``build/kernels/lib<name>-<hash>.so`` at the root of the checkout. The
-hash covers the source and the flags, so an edited source is rebuilt at
-its first use and an unchanged one is loaded as built. Nothing is built
-when a module is imported: only ``load`` builds.
+hash covers the source, the headers of ``csrc/`` and the flags, so an
+edited source or header is rebuilt at its first use and an unchanged one
+is loaded as built. Nothing is built when a module is imported: only
+``load`` builds.
 """
 
 from __future__ import annotations
@@ -51,17 +52,24 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> pathlib.Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library's path, named by a digest of ``csrc/<name>.cu``, every
+    ``csrc/*.cuh`` (a source may include any of them) and the flags."""
+    h = hashlib.sha256()
+    for src in [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]:
+        h.update(src.name.encode() + b"\0" + src.read_bytes() + b"\0")
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> BuildResult:
-    """Compile ``csrc/<name>.cu`` unless this exact source is built."""
+    """Compile ``csrc/<name>.cu`` unless this exact source is built. The
+    compiler's output is kept beside the library (``.log``), so a library
+    loaded as built still reports its registers and spills."""
     out = library_path(name)
+    log_path = out.with_suffix(".log")
     if out.exists():
-        return BuildResult(out, 0.0, "")
+        return BuildResult(out, 0.0, log_path.read_text()
+                           if log_path.exists() else "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     # a private temporary name, renamed into place: concurrent builders
     # never load a half-written library
@@ -75,6 +83,9 @@ def build(name: str) -> BuildResult:
     if res.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed ({res.returncode}) for {name}.cu:\n{log}")
+    log_tmp = tmp.with_suffix(".log")
+    log_tmp.write_text(log)
+    os.replace(log_tmp, log_path)
     os.replace(tmp, out)
     return BuildResult(out, seconds, log)
 

@@ -110,7 +110,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """Contiguous, on a 16-byte boundary (the kernel's vector loads)."""
+    """Contiguous, on a 16-byte boundary (a TMA tensor map's base)."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
@@ -130,8 +130,9 @@ def flash_attention_blocks(
 
     On a CUDA tensor this launches kernel B2 (and counts the launch in
     ``flash_attention_blocks.launches``), which takes bf16 with D in
-    ``KERNEL_HEAD_DIMS`` and picks its own tiles; ``q_tile``/``chunk``
-    are the plain version's loop steps, used on a CPU tensor.
+    ``KERNEL_HEAD_DIMS`` and always works in 128-row Q tiles and 128-key
+    chunks; ``q_tile``/``chunk`` are the plain version's loop steps, used
+    on a CPU tensor.
     """
     _check(q, k, v)
     if q.device.type == "cpu":
