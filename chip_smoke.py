@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main path on one card and check it.
 
-    python3 chip_smoke.py        # from the root of a checkout, on a CUDA host
+    python3 chip_smoke.py    # from the root of a checkout, on a CUDA host
 
-Two paths of ``tpu_operator_torch`` are driven. The per-node validation
-chain (driver -> runtime -> cuda -> hbm -> nvlink) runs through its CLI at
-the DaemonSet's sizes (MATMUL_SIZE=4096, HBM_SIZE_MB=512). The
+Three paths of ``tpu_operator_torch`` are driven. The per-node validation
+chain (driver -> runtime -> cuda -> hbm -> nvlink -> dcn) runs through its
+CLI at the DaemonSet's sizes (MATMUL_SIZE=4096, HBM_SIZE_MB=512). The
 long-context path runs ring and Ulysses attention through
 ``ringattention``'s harness over every visible card, the ring's
 flash-kernel hop at a 32k-token context, and ``flash_attention`` forward
-and backward. Phases, each fatal:
+and backward. The burn-in trainer runs at ``BurninConfig``'s defaults
+over every visible card, with its checkpoint/resume, the DCN probe and
+the multi-card dry run. Phases, each fatal:
 
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
 2. build the hand-written kernels from the checkout's sources, one nvcc
@@ -23,13 +25,23 @@ and backward. Phases, each fatal:
    the future (exact), non-causal D=128 and a two-block merge;
 4. run the validator chain with the triad's count set to 0, and require
    that the chain went through the kernel and wrote every barrier file;
+   then the DCN proof, once on this one node (skipped) and once as node 1
+   of 2 against a TCP listener this script opens on 127.0.0.1 (RTT_MS);
 5. run the collective suite over NCCL at world size 1 against its oracle;
 6. run the long-context path with the flash kernel's count set to 0, and
    require that it is correct and went through the kernel;
 7. time each kernel beside its bound, its plain version and the library
    call computing the same function, the matmul proof, and the parts of
    the flash ring's call on one card (fold, kernel, merge);
-8. print the kernel table as one JSON line.
+8. the burn-in (no kernel of its own): ``burnin.run()`` whose loss must
+   fall; a TP and an FSDP step on one batch whose losses agree within
+   2e-4; a checkpoint save, a restore into a fresh init whose parameters,
+   AdamW moments and step counts equal the saved ones bit for bit, and a
+   next step whose loss equals the uninterrupted run's bit for bit; ms per train
+   step, tokens/s, save and restore seconds; with >= 2 cards the DCN probe
+   over two fake slices (NVLink traffic: nothing crosses a network), with
+   an even number >= 4 the dry run;
+9. print the kernel table as one JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``; on any failure the
 script exits non-zero and prints no such line. Imports nothing of JAX.
@@ -38,10 +50,12 @@ script exits non-zero and prints no such line. Imports nothing of JAX.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import json
 import os
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -90,6 +104,15 @@ FLASH_ELEM_ATOL, FLASH_ELEM_RTOL = 1e-3, 2.0 ** -7
 # flash_attention's bf16 forward and backward against autograd of the f32
 # oracle, the tolerance of the JAX package's bf16 gradient test
 FLASH_GRAD_RTOL, FLASH_GRAD_ATOL = 0.05, 0.02
+
+
+# the burn-in: TP and FSDP losses of one step on one batch agree within
+# JAX's own bound (tests/test_workloads.py)
+BURNIN_FSDP_RTOL = 2e-4
+# train steps timed per repeat, after BURNIN_WARMUP steps
+BURNIN_WARMUP, BURNIN_TIMED_STEPS, BURNIN_REPEATS = 3, 10, 3
+# the DCN probe's all-reduce per rank, validate_dcn's default
+DCN_PROBE_SIZE_MB = 64.0
 
 
 def log(msg: str) -> None:
@@ -421,6 +444,202 @@ def run_validator_chain(cli, barrier) -> dict:
     return files
 
 
+@contextlib.contextmanager
+def environ(**values):
+    """os.environ with ``values`` set (None: unset), restored on exit."""
+    old = {k: os.environ.get(k) for k in values}
+    try:
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def run_dcn_proofs(cli, barrier) -> dict:
+    """``-c dcn`` on this one node (skipped), then as node 1 of 2 whose
+    rendezvous is a listener this script opens on 127.0.0.1 (the kernel
+    completes the handshake; nothing accepts); returns both files."""
+    files = {}
+    one_node = dict(GPU_NUM_NODES=None, MASTER_ADDR=None, MASTER_PORT=None,
+                    GROUP_RANK=None, DCN_BANDWIDTH_PROBE=None)
+    with environ(**one_node):
+        rc = cli.main(["-c", "dcn"])
+        files["single_node"] = info = barrier.read_status("dcn-ready")
+    log(f"  -c dcn, one node: rc={rc}, dcn-ready: {info}")
+    if rc != 0 or info is None or "SKIPPED" not in info:
+        raise RuntimeError(f"validator -c dcn on one node: rc={rc} {info}")
+    barrier.clear_status("dcn-ready")
+    with socket.socket() as srv:
+        srv.bind(("127.0.0.1", 0))
+        srv.listen(4)
+        port = srv.getsockname()[1]
+        with environ(**dict(one_node, GPU_NUM_NODES="2",
+                            MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                            GROUP_RANK="1")):
+            rc = cli.main(["-c", "dcn"])
+            files["two_nodes"] = info = barrier.read_status("dcn-ready")
+    log(f"  -c dcn, node 1 of 2, rendezvous 127.0.0.1:{port}: rc={rc}, "
+        f"dcn-ready: {info}")
+    if rc != 0 or info is None or "RTT_MS" not in info:
+        raise RuntimeError(f"validator -c dcn against the listener: rc={rc} "
+                           f"{info}")
+    return files
+
+
+def burnin_checks_rank(rank, world_size, device, ckdir: str) -> dict:
+    """Per-rank body for ``mesh.spawn`` (one rank per card): at
+    ``BurninConfig``'s defaults on the [data, model] mesh of every rank,
+    one TP and one FSDP step on one batch; ``dryrun.resume_matches`` on
+    the TP state (save, restore into a fresh differently seeded init with
+    every parameter, moment and step count bit-equal, and a next step
+    whose loss equals the uninterrupted run's bit for bit; it raises
+    otherwise); then the TP step timed."""
+    import torch
+
+    from tpu_operator_torch import dryrun
+    from tpu_operator_torch.parallel.mesh import build_mesh
+    from tpu_operator_torch.workloads import burnin
+
+    cfg = burnin.BurninConfig()
+    mesh = build_mesh()
+    step, init_state, _ = burnin.make_train_step(mesh, cfg)
+    fstep, finit, _ = burnin.make_train_step(mesh, cfg, fsdp=True)
+    batch, batch2 = (burnin.make_batch(cfg, mesh, s) for s in (0, 1))
+    tp, loss = step(init_state(0), batch)
+    fs, floss = fstep(finit(0), batch)
+    del fs
+    resume = dryrun.resume_matches(step, init_state, tp, batch2, ckdir)
+
+    step_s = time_steps(torch, step, tp, batch, device)
+    busy = profile_steps(torch, step, tp, batch, device)
+    # the same step without a mesh, no DTensor: on one card it does the
+    # same work, so the difference is DTensor's and the collectives' cost
+    pstep, pinit, _ = burnin.make_train_step(None, cfg, device=device)
+    plain_s = time_steps(torch, pstep, pinit(0), burnin.make_batch(
+        cfg, None, 0, device=device), device)
+    return {"mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+            "tp_loss": float(loss), "fsdp_loss": float(floss),
+            "resume": resume, "save_s": resume["save_s"],
+            "restore_s": resume["restore_s"],
+            "step_ms_runs": [t * 1e3 for t in step_s],
+            "step_ms": min(step_s) * 1e3,
+            "tokens_per_s": cfg.batch * cfg.seq_len / min(step_s),
+            "plain_step_ms_runs": [t * 1e3 for t in plain_s],
+            "plain_step_ms": min(plain_s) * 1e3, "profile": busy,
+            # the card's idle share of the unprofiled step
+            "device_idle_share": None if busy["busy_ms"] is None
+            else 1.0 - busy["busy_ms"] / (min(step_s) * 1e3)}
+
+
+def time_steps(torch, step, state, batch, device) -> list:
+    """Seconds per train step, one figure per repeat, after warm-up."""
+    for _ in range(BURNIN_WARMUP):
+        state, _ = step(state, batch)
+    torch.cuda.synchronize(device)
+    runs = []
+    for _ in range(BURNIN_REPEATS):
+        t0 = time.perf_counter()
+        for _ in range(BURNIN_TIMED_STEPS):
+            state, _ = step(state, batch)
+        torch.cuda.synchronize(device)
+        runs.append((time.perf_counter() - t0) / BURNIN_TIMED_STEPS)
+    return runs
+
+
+def profile_steps(torch, step, state, batch, device) -> dict:
+    """``BURNIN_TIMED_STEPS`` steps under ``torch.profiler``: the card's
+    busy time a step (the sum of its kernels' and copies' own times; the
+    spans of annotated regions, such as the optimizer's step, are left
+    out, since their kernels are counted), the device operations a step
+    and the five longest, and the wall time a step under the profiler.
+    Where the profiler records no device time, the device figures are
+    None (not measured)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(BURNIN_TIMED_STEPS):
+            state, _ = step(state, batch)
+        torch.cuda.synchronize(device)
+        wall_ms = (time.perf_counter() - t0) * 1e3 / BURNIN_TIMED_STEPS
+    on_device = [e for e in prof.key_averages()
+                 if e.self_device_time_total > 0 and e.self_cpu_time_total == 0
+                 and not getattr(e, "is_user_annotation", False)]
+    busy_ms = sum(e.self_device_time_total for e in on_device) / 1e3 \
+        / BURNIN_TIMED_STEPS
+    if busy_ms == 0:
+        return {"wall_ms": wall_ms, "busy_ms": None, "device_ops": None}
+    top = sorted(on_device, key=lambda e: -e.self_device_time_total)[:5]
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms,
+            "device_ops": sum(e.count for e in on_device) / BURNIN_TIMED_STEPS,
+            "top": [(e.key[:60], e.self_device_time_total / 1e3
+                     / BURNIN_TIMED_STEPS) for e in top]}
+
+
+def burnin_path(mesh, card: str, n_cards: int) -> dict:
+    """Phase 8; returns its figures."""
+    from tpu_operator_torch import dryrun
+    from tpu_operator_torch.parallel import multihost
+    from tpu_operator_torch.workloads import burnin
+
+    cfg = burnin.BurninConfig()
+    t0 = time.perf_counter()
+    first, last = burnin.run()
+    run_s = time.perf_counter() - t0
+    log(f"  burnin.run() at {cfg}: first_loss={first!r} last_loss={last!r} "
+        f"in {run_s:.1f}s")
+    if not last < first:
+        raise RuntimeError(f"the burn-in's loss did not fall: {first} -> "
+                           f"{last}")
+    with tempfile.TemporaryDirectory(prefix="burnin-ckpt-") as ckdir:
+        ranks = mesh.spawn(burnin_checks_rank, n_cards, "cuda",
+                           args=(ckdir,), timeout_s=600)
+    r0 = ranks[0]
+    rel = abs(r0["fsdp_loss"] - r0["tp_loss"]) / abs(r0["tp_loss"])
+    log(f"  mesh {r0['mesh']}: tp_loss={r0['tp_loss']!r} "
+        f"fsdp_loss={r0['fsdp_loss']!r} rel={rel!r} (limit "
+        f"{BURNIN_FSDP_RTOL})")
+    if not rel <= BURNIN_FSDP_RTOL:
+        raise RuntimeError(f"FSDP and TP losses disagree: {rel!r}")
+    # resume_matches raised in the rank unless every restored tensor and
+    # the next loss were bit-equal
+    for i, r in enumerate(ranks):
+        log(f"  rank {i}: restored step 1 into a fresh init: "
+            f"{r['resume']['tensors_restored']} parameter and optimizer "
+            f"tensors bit-equal; the next step (step "
+            f"{r['resume']['resumed_step']}) loss {r['resume']['loss']!r} "
+            f"bit-equal to the uninterrupted run's")
+    figures = {"card": card, "cards": n_cards, "config": str(cfg),
+               "run_first_loss": first, "run_last_loss": last,
+               "run_seconds": run_s, **r0}
+    if n_cards >= 2:
+        probe = multihost.fake_slices_probe(2, size_mb=DCN_PROBE_SIZE_MB)
+        log(f"  DCN probe over 2 fake slices of {n_cards // 2} card(s) on "
+            f"one node (NVLink traffic, no network): {probe}")
+        if not probe.correct or probe.slices != 2:
+            raise RuntimeError(f"the DCN probe moved wrong data: {probe}")
+        figures["dcn_probe_nvlink"] = probe.__dict__
+    else:
+        log("  DCN probe: skipped, two fake slices need two cards and this "
+            "host has one")
+    if n_cards >= 4 and n_cards % 2 == 0:
+        figures["dryrun"] = dryrun.dryrun_multichip(n_cards)
+        log(f"  dryrun_multichip({n_cards}): {figures['dryrun']}")
+    else:
+        log(f"  dryrun_multichip: skipped, needs an even number >= 4 of "
+            f"cards, this host has {n_cards}")
+    return figures
+
+
 def main() -> int:
     import torch
 
@@ -505,6 +724,7 @@ def main() -> int:
         hbm_probe.triad_.launches = 0
         files = run_validator_chain(cli, barrier)
         triad_launches = hbm_probe.triad_.launches
+        dcn_files = run_dcn_proofs(cli, barrier)
     finally:
         shutil.rmtree(valdir, ignore_errors=True)
     log(f"  triad launches in the chain: {triad_launches} "
@@ -597,10 +817,18 @@ def main() -> int:
                             "ptxas_spills": flash_spills,
                             "ring_call_parts": ring_parts},
         "context_parallel": [r.__dict__ for r in cp_results],
+        "dcn_ready": dcn_files,
     }
     log(json.dumps(timings))
 
-    # 8. the kernel table
+    # 8. the burn-in: no kernel of this repo lies on it (its attention is
+    # einsum, as JAX's is jnp), so no count is read here
+    log(f"# phase 8: burn-in over {torch.cuda.device_count()} card(s)")
+    torch.cuda.empty_cache()
+    burnin_figures = burnin_path(mesh, card, torch.cuda.device_count())
+    log(json.dumps({"burnin": burnin_figures}))
+
+    # 9. the kernel table
     kernels = [{
         "name": "triad",
         "route": "cuda",

@@ -1,6 +1,7 @@
 """The port stands alone: every module of tpu_operator_torch, and
 chip_smoke.py, imports with JAX and the JAX package blocked, and its
-default device is the card, which this host does not have."""
+default device is the card, which this host does not have: the entry
+points refuse to run rather than fall back to the CPU."""
 
 import os
 import subprocess
@@ -25,16 +26,25 @@ PROBE = textwrap.dedent("""
         importlib.import_module(m)
     importlib.import_module("chip_smoke")
 
-    from tpu_operator_torch.workloads import backend
-    try:
-        backend.resolve_device(None)
-        default = "ran"
-    except RuntimeError as e:
-        default = str(e)
+    from tpu_operator_torch import dryrun
+    from tpu_operator_torch.workloads import backend, burnin
+
+    def refusal(fn):
+        try:
+            fn()
+            return "ran"
+        except RuntimeError as e:
+            return str(e)
+
+    default = refusal(lambda: backend.resolve_device(None))
+    entries = {"burnin.run": refusal(lambda: burnin.run(steps=1)),
+               "dryrun_multichip": refusal(
+                   lambda: dryrun.dryrun_multichip(2, "cuda"))}
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "tpu_operator")
                     and sys.modules[m] is not None)
-    print(json.dumps({"modules": mods, "default": default, "leaked": leaked}))
+    print(json.dumps({"modules": mods, "default": default,
+                      "entries": entries, "leaked": leaked}))
 """)
 
 
@@ -42,6 +52,8 @@ def test_port_imports_without_jax_or_the_jax_package():
     import json
 
     env = dict(os.environ, PYTHONPATH=ROOT)
+    for k in ("MASTER_ADDR", "GPU_COORDINATOR_ADDRESS"):  # no job to join
+        env.pop(k, None)
     out = subprocess.run([sys.executable, "-c", PROBE], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -57,6 +69,10 @@ def test_port_imports_without_jax_or_the_jax_package():
         "tpu_operator_torch.workloads.flashattention",
         "tpu_operator_torch.workloads.ringattention",
         "tpu_operator_torch.parallel.mesh",
+        "tpu_operator_torch.parallel.multihost",
+        "tpu_operator_torch.workloads.burnin",
+        "tpu_operator_torch.workloads.checkpoint",
+        "tpu_operator_torch.dryrun",
         "tpu_operator_torch.validator.barrier",
         "tpu_operator_torch.validator.components",
         "tpu_operator_torch.cli.validator",
@@ -64,6 +80,8 @@ def test_port_imports_without_jax_or_the_jax_package():
     assert expected <= set(res["modules"])
     assert res["leaked"] == []
     assert res["default"].startswith("CUDA is not available")
+    for entry, refusal in res["entries"].items():
+        assert refusal.startswith("CUDA is not available"), entry
 
 
 def test_chip_smoke_refuses_a_host_without_cuda(tmp_path):

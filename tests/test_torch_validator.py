@@ -18,7 +18,7 @@ from tpu_operator_torch.workloads import collectives, hbm_probe, matmul
 # barrier files and info keys the port renames; every other key is shared
 STATUS_RENAMES = {"jax-ready": "cuda-ready", "ici-ready": "nvlink-ready"}
 KEY_RENAMES = {"MXU_UTILIZATION": "TENSOR_CORE_UTILIZATION"}
-CHAIN = ("driver", "runtime", "cuda", "hbm", "nvlink")
+CHAIN = ("driver", "runtime", "cuda", "hbm", "nvlink", "dcn")
 SMALL = {"MATMUL_SIZE": "64", "HBM_SIZE_MB": "2"}
 
 
@@ -34,6 +34,10 @@ def cpu_chain_env(valdir, monkeypatch):
     monkeypatch.setenv("GPU_VALIDATOR_ALLOW_CPU", "true")
     for k, v in SMALL.items():
         monkeypatch.setenv(k, v)
+    # one node: the DCN proof is skipped, as the JAX one on one slice
+    for k in ("GPU_NUM_NODES", "MASTER_ADDR", "MEGASCALE_NUM_SLICES",
+              "MEGASCALE_COORDINATOR_ADDRESS"):
+        monkeypatch.delenv(k, raising=False)
     return valdir
 
 
@@ -64,9 +68,10 @@ def _jax_chain_infos(tmp_path, monkeypatch):
     jax_components.validate_jax()
     jax_components.validate_hbm()
     jax_components.validate_ici()
+    jax_components.validate_dcn()
     return {STATUS_RENAMES.get(name, name): jax_barrier.read_status(name)
             for name in ("driver-ready", "runtime-ready", "jax-ready",
-                         "hbm-ready", "ici-ready")}
+                         "hbm-ready", "ici-ready", "dcn-ready")}
 
 
 def _keys(info):
@@ -81,6 +86,7 @@ def test_chain_writes_barriers_with_the_jax_keys(cpu_chain_env, tmp_path,
             for name in barrier.KNOWN_STATUS_FILES}
     assert all(info is not None for info in port.values()), port
     assert port["nvlink-ready"]["SKIPPED"].startswith("single-card host")
+    assert port["dcn-ready"]["SKIPPED"].startswith("single-node job")
     assert port["cuda-ready"]["MATMUL_SIZE"] == "64"
     assert port["hbm-ready"]["DEVICE_KIND"] == "cpu"
     assert hbm_probe.triad_.launches == 0  # the CPU runs the plain version
@@ -285,4 +291,4 @@ def test_barrier_defaults_are_the_ports_own(monkeypatch):
     assert str(barrier.validation_dir()) == "/run/nvidia/validations"
     assert set(barrier.KNOWN_STATUS_FILES) == {
         "driver-ready", "runtime-ready", "cuda-ready", "hbm-ready",
-        "nvlink-ready"}
+        "nvlink-ready", "dcn-ready"}

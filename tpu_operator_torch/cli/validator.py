@@ -1,14 +1,16 @@
 """gpu-validator entrypoint: the per-node validation chain on CUDA.
 
 Counterpart of ``tpu_operator/cli/validator.py``. Usage:
-    python -m tpu_operator_torch.cli.validator -c driver|runtime|cuda|hbm|nvlink
+    python -m tpu_operator_torch.cli.validator -c driver|runtime|cuda|hbm|nvlink|dcn
     python -m tpu_operator_torch.cli.validator wait <status-file>
     python -m tpu_operator_torch.cli.validator cleanup
 
 Flags mirror to env vars (WITH_WAIT, MATMUL_SIZE, HBM_THRESHOLD,
 HBM_SIZE_MB, NVLINK_THRESHOLD, NVLINK_SIZE_MB, NVLINK_FULL_SUITE,
-GPU_VALIDATION_DIR). Exit codes: 0 proof passed, 1 proof failed, 2 no
-component given.
+GPU_NUM_NODES, MASTER_ADDR, MASTER_PORT, GROUP_RANK, DCN_TIMEOUT_S,
+DCN_BANDWIDTH_PROBE, DCN_PROBE_FAKE_SLICES, DCN_PROBE_SIZE_MB,
+DCN_THRESHOLD, GPU_VALIDATION_DIR). Exit codes: 0 proof passed, 1 proof
+failed, 2 no component given.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import time
 from ..validator import barrier, components
 
 # each runs components.validate_<name>
-_COMPONENTS = ("driver", "runtime", "cuda", "hbm", "nvlink")
+_COMPONENTS = ("driver", "runtime", "cuda", "hbm", "nvlink", "dcn")
 
 
 def build_parser() -> argparse.ArgumentParser:

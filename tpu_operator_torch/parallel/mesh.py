@@ -1,9 +1,12 @@
-"""Process groups: the ring of ranks the collective proofs run over.
+"""Process groups and device meshes of ranks.
 
-Counterpart of ``ring_mesh`` in ``tpu_operator/parallel/mesh.py``. Where
-JAX runs one program over a 1-D mesh of devices, torch runs one process
-per card in a process group: NCCL on the card (over NVLink inside a
-host), gloo on the CPU.
+Counterpart of ``ring_mesh``, ``factor_axes`` and ``build_mesh`` in
+``tpu_operator/parallel/mesh.py``. Where JAX runs one program over a mesh
+of devices, torch runs one process per card in a process group: NCCL on
+the card (over NVLink inside a host), gloo on the CPU. A mesh is a
+``DeviceMesh`` over those ranks; its *layout*, the numpy array of rank
+ids, is computed apart (``mesh_layout``) so it can be checked without a
+process group.
 
 ``spawn`` starts the ranks of one host with ``torch.multiprocessing``.
 The rendezvous address is a free port found at run time, never a fixed
@@ -15,18 +18,66 @@ hanging it.
 from __future__ import annotations
 
 import datetime
+import math
 import os
 import queue
 import socket
 import time
 import traceback
-from typing import Callable, List, Sequence
+from typing import Callable, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
 DEFAULT_TIMEOUT_S = 300.0
+
+
+def factor_axes(n: int, model_parallel: Optional[int] = None) -> Tuple[int, int]:
+    """Split n ranks into (data, model). When unspecified, model gets the
+    largest power-of-two factor <= sqrt(n) so both axes stay useful."""
+    if model_parallel:
+        if n % model_parallel:
+            raise ValueError(f"{n} devices not divisible by "
+                             f"model_parallel={model_parallel}")
+        return n // model_parallel, model_parallel
+    model = 1
+    while model * 2 <= int(math.isqrt(n)) and n % (model * 2) == 0:
+        model *= 2
+    return n // model, model
+
+
+def mesh_layout(ranks: Sequence[int],
+                model_parallel: Optional[int] = None) -> np.ndarray:
+    """The [data, model] array of rank ids ``build_mesh`` lays out:
+    ``ranks`` in order, row-major, so a model group is consecutive ranks."""
+    dp, mp_ = factor_axes(len(ranks), model_parallel)
+    return np.asarray(ranks, dtype=np.int64).reshape(dp, mp_)
+
+
+def device_type() -> str:
+    """The device type of this rank's process group's meshes."""
+    return "cuda" if dist.get_backend() == "nccl" else "cpu"
+
+
+def mesh_of(layout: np.ndarray, axis_names: Sequence[str]):
+    """A ``DeviceMesh`` over ``layout``'s ranks of the current process
+    group. Every rank of the group calls it (it makes sub-groups)."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    return DeviceMesh(device_type(), torch.as_tensor(layout),
+                      mesh_dim_names=tuple(axis_names))
+
+
+def build_mesh(ranks: Optional[Sequence[int]] = None,
+               model_parallel: Optional[int] = None,
+               axis_names: Tuple[str, str] = ("data", "model")):
+    """[data, model] ``DeviceMesh`` over ``ranks`` (default: every rank of
+    the current group)."""
+    if ranks is None:
+        ranks = range(dist.get_world_size())
+    return mesh_of(mesh_layout(list(ranks), model_parallel), axis_names)
 
 
 def free_port() -> int:

@@ -25,6 +25,7 @@ KNOWN_STATUS_FILES = (
     "cuda-ready",
     "hbm-ready",
     "nvlink-ready",
+    "dcn-ready",
 )
 
 

@@ -13,13 +13,20 @@ stack and writes its barrier status file. Component -> proof:
                the card's HBM bandwidth -> hbm-ready
 - ``nvlink``   all-reduce across the host's cards must reach a fraction
                of NVLink bandwidth -> nvlink-ready; skipped on one card
+- ``dcn``      multi-node reachability: the job's rendezvous answers over
+               the data-centre network -> dcn-ready; skipped on one node;
+               optionally the cross-node all-reduce bandwidth
 - ``cleanup``  preStop barrier teardown
 
 Env knobs, by their JAX-package names: ``TPU_FAKE_CHIPS`` ->
 ``GPU_FAKE_CHIPS``, ``TPU_VALIDATOR_ALLOW_CPU`` ->
 ``GPU_VALIDATOR_ALLOW_CPU``, ``TPU_VALIDATOR_USE_JAX`` ->
-``GPU_VALIDATOR_USE_TORCH``, ``ICI_*`` -> ``NVLINK_*``; ``MATMUL_SIZE``,
-``HBM_THRESHOLD`` and ``HBM_SIZE_MB`` keep their names.
+``GPU_VALIDATOR_USE_TORCH``, ``ICI_*`` -> ``NVLINK_*``,
+``MEGASCALE_NUM_SLICES`` -> ``GPU_NUM_NODES``,
+``MEGASCALE_COORDINATOR_ADDRESS`` -> ``MASTER_ADDR:MASTER_PORT``
+(torchrun's; port 29500 by default), ``MEGASCALE_SLICE_ID`` ->
+``GROUP_RANK``; ``MATMUL_SIZE``, ``HBM_THRESHOLD``, ``HBM_SIZE_MB`` and
+the ``DCN_*`` knobs keep their names.
 """
 
 from __future__ import annotations
@@ -30,10 +37,12 @@ import logging
 import os
 import stat
 import subprocess
+import time
 from typing import Dict, List, Optional
 
 import torch
 
+from ..parallel import multihost
 from ..workloads import collectives, hbm_probe, matmul
 from ..workloads.backend import resolve_device
 from . import barrier
@@ -323,6 +332,93 @@ def validate_hbm(threshold: Optional[float] = None,
                 f"below the {thr:.0%} threshold")
     barrier.write_status("hbm-ready", info)
     return info
+
+
+def validate_dcn(timeout: Optional[float] = None) -> Dict[str, str]:
+    """Multi-node DCN reachability: a multi-node job's ranks discover each
+    other through torchrun's rendezvous (``MASTER_ADDR:MASTER_PORT``);
+    this proof resolves and TCP-connects it. On a single-node job there is
+    no DCN to validate — skipped."""
+    import socket
+
+    num_slices = int(os.environ.get("GPU_NUM_NODES", "1") or 1)
+    addr = os.environ.get("MASTER_ADDR", "")
+    if num_slices <= 1 or not addr:
+        info = {"SKIPPED": "single-node job, no DCN to validate",
+                "NUM_SLICES": str(num_slices)}
+        barrier.write_status("dcn-ready", info)
+        return info
+    port = int(os.environ.get("MASTER_PORT", "") or
+               multihost.DEFAULT_MASTER_PORT)
+    coordinator = f"{addr}:{port}"
+    deadline = time.monotonic() + (
+        timeout if timeout is not None
+        else float(os.environ.get("DCN_TIMEOUT_S", "60")))
+    last_err: Optional[Exception] = None
+    info: Optional[Dict[str, str]] = None
+    while time.monotonic() < deadline:
+        start = time.perf_counter()
+        try:
+            with socket.create_connection((addr, port), timeout=5.0):
+                rtt_ms = (time.perf_counter() - start) * 1e3
+            info = {
+                "COORDINATOR": coordinator,
+                "NUM_SLICES": str(num_slices),
+                "SLICE_ID": os.environ.get("GROUP_RANK", ""),
+                "RTT_MS": f"{rtt_ms:.2f}",
+            }
+            break
+        except OSError as e:
+            last_err = e
+            time.sleep(1.0)
+    if info is None:
+        raise ValidationFailed(
+            f"rendezvous {coordinator} unreachable over DCN: {last_err}")
+    # outside the connect-retry loop: a probe error must never be
+    # misread as rendezvous unreachability (and never re-run per retry)
+    _maybe_dcn_bandwidth_probe(info)
+    barrier.write_status("dcn-ready", info)
+    return info
+
+
+def _maybe_dcn_bandwidth_probe(info: Dict[str, str]) -> None:
+    """DCN_BANDWIDTH_PROBE=true: measure the cross-node gradient-sync path
+    (an all-reduce over the hybrid mesh's dcn axis) and add its figures
+    to the barrier info. ``DCN_PROBE_FAKE_SLICES=N`` runs it over N equal
+    groups of this host's cards, one spawned rank per card (fake/test
+    clusters: the traffic then rides NVLink). Wrong sums fail the proof;
+    a probe that cannot run (no card, too few cards, a single node)
+    records the error and leaves the reachability verdict standing."""
+    if os.environ.get("DCN_BANDWIDTH_PROBE", "").lower() != "true":
+        return
+    try:
+        fake_n = int(os.environ.get("DCN_PROBE_FAKE_SLICES", "0") or 0)
+        size_mb = float(os.environ.get("DCN_PROBE_SIZE_MB", "64"))
+        if fake_n > 1:
+            res = multihost.fake_slices_probe(fake_n, size_mb=size_mb)
+        else:
+            multihost.initialize()
+            res = multihost.dcn_allreduce_probe(size_mb=size_mb)
+    except Exception as e:
+        # a probe that cannot RUN (no visible backend, bad config) is a
+        # recorded error, not a failed proof — reachability stands; only
+        # a probe that ran and moved WRONG DATA fails below
+        info["DCN_PROBE_ERROR"] = f"{type(e).__name__}: {e}"
+        return
+    if not res.correct:
+        raise ValidationFailed("DCN all-reduce produced wrong values")
+    info["DCN_SLICES"] = str(res.slices)
+    info["DCN_BUS_GBPS"] = f"{res.bus_bw_gbps:.2f}"
+    # DCN_THRESHOLD (GB/s bus bandwidth): absolute, not a fraction of a
+    # peak — the inter-node fabric's peak is not visible from the node.
+    # Off unless set: reachability plus correct data is the contract.
+    thr_s = os.environ.get("DCN_THRESHOLD", "")
+    if thr_s:
+        thr = float(thr_s)
+        if res.bus_bw_gbps < thr:
+            raise ValidationFailed(
+                f"DCN all-reduce bus bandwidth {res.bus_bw_gbps:.2f} is "
+                f"below the {thr:g} DCN_THRESHOLD")
 
 
 def component_cleanup() -> None:
