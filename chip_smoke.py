@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py    # from the root of a checkout, on a CUDA host
 
-Three paths of ``tpu_operator_torch`` are driven. The per-node validation
+Four paths of ``tpu_operator_torch`` are driven. The per-node validation
 chain (driver -> runtime -> cuda -> hbm -> nvlink -> dcn) runs through its
 CLI at the DaemonSet's sizes (MATMUL_SIZE=4096, HBM_SIZE_MB=512). The
 long-context path runs ring and Ulysses attention through
@@ -11,7 +11,8 @@ long-context path runs ring and Ulysses attention through
 flash-kernel hop at a 32k-token context, and ``flash_attention`` forward
 and backward. The burn-in trainer runs at ``BurninConfig``'s defaults
 over every visible card, with its checkpoint/resume, the DCN probe and
-the multi-card dry run. Phases, each fatal:
+the multi-card dry run. The pipeline, the expert-parallel MoE and the
+conv burn-in run over every visible card. Phases, each fatal:
 
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
 2. build the hand-written kernels from the checkout's sources, one nvcc
@@ -40,8 +41,15 @@ the multi-card dry run. Phases, each fatal:
    next step whose loss equals the uninterrupted run's bit for bit; ms per train
    step, tokens/s, save and restore seconds; with >= 2 cards the DCN probe
    over two fake slices (NVLink traffic: nothing crosses a network), with
-   an even number >= 4 the dry run;
-9. print the kernel table as one JSON line.
+   an even number >= 4 the dry run (now with its conv, pipeline and MoE
+   stages);
+9. the parallel workloads (no kernel of their own), one rank per card:
+   ``pipeline.run()`` and ``moe.run()`` at their defaults, each correct
+   against its oracle, and one wider case each held to its f32 oracle
+   within 1e-5 of the oracle's largest value, with ms per call;
+   ``convburn.run()`` whose loss must fall, and the conv train step's ms,
+   images/s and the card's busy share under ``torch.profiler``;
+10. print the kernel table as one JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``; on any failure the
 script exits non-zero and prints no such line. Imports nothing of JAX.
@@ -113,6 +121,19 @@ BURNIN_FSDP_RTOL = 2e-4
 BURNIN_WARMUP, BURNIN_TIMED_STEPS, BURNIN_REPEATS = 3, 10, 3
 # the DCN probe's all-reduce per rank, validate_dcn's default
 DCN_PROBE_SIZE_MB = 64.0
+
+# the parallel workloads' wider cases, to put the card to work: a pipeline
+# of 1024-wide FFN stages (d_ff 4096) over 8 microbatches of 4 x 256
+# tokens, and an MoE of 2048 tokens an expert at the same widths. Both
+# run in f32 (TF32 off, torch's default) against their f32 oracles; the
+# gate is relative to the oracle's largest value, since f32 products of
+# 4096 terms summed in another order differ by ~1e-6 of it
+PIPELINE_WIDE = dict(batch=32, seq_len=256, d_model=1024, d_ff=4096,
+                     n_microbatches=8)
+MOE_WIDE = dict(tokens_per_expert=2048, d_model=1024, d_ff=4096)
+WIDE_RTOL = 1e-5
+# timed calls per pipeline/MoE case, after one warm-up; the min is kept
+PARALLEL_REPEATS = 5
 
 
 def log(msg: str) -> None:
@@ -640,6 +661,96 @@ def burnin_path(mesh, card: str, n_cards: int) -> dict:
     return figures
 
 
+def parallel_checks_rank(rank, world_size, device) -> dict:
+    """Per-rank body for ``mesh.spawn`` (one rank per card): the pipeline
+    and MoE cases at ``run()``'s defaults and at the wide shapes, timed
+    (rank 0 holds each to its oracle), then the conv burn-in's train step
+    at ``ConvBurninConfig``'s defaults on the training mesh, timed and
+    profiled."""
+    import torch
+
+    from tpu_operator_torch.parallel import multihost
+    from tpu_operator_torch.workloads import convburn, moe, pipeline
+
+    def case(report) -> dict:
+        return {**report.result.__dict__, "oracle_max": report.oracle_max,
+                "ms": report.seconds * 1e3}
+
+    out = {
+        "pipeline": case(pipeline.pipeline_case(device,
+                                                repeats=PARALLEL_REPEATS)),
+        "pipeline_wide": case(pipeline.pipeline_case(
+            device, repeats=PARALLEL_REPEATS, **PIPELINE_WIDE)),
+        "moe": case(moe.moe_case(device, repeats=PARALLEL_REPEATS)),
+        "moe_wide": case(moe.moe_case(device, repeats=PARALLEL_REPEATS,
+                                      **MOE_WIDE)),
+    }
+    torch.cuda.empty_cache()
+    cfg = convburn.ConvBurninConfig()
+    cmesh = multihost.training_mesh()
+    step, init_state = convburn.make_train_step(cmesh, cfg)
+    state, batch = init_state(0), convburn.make_batch(cfg, cmesh, 0)
+    step_s = time_steps(torch, step, state, batch, device)
+    busy = profile_steps(torch, step, state, batch, device)
+    out["conv"] = {
+        "mesh": dict(zip(cmesh.mesh_dim_names, cmesh.shape)),
+        "step_ms_runs": [t * 1e3 for t in step_s],
+        "step_ms": min(step_s) * 1e3,
+        "images_per_s": cfg.batch / min(step_s), "profile": busy,
+        "device_idle_share": None if busy["busy_ms"] is None
+        else 1.0 - busy["busy_ms"] / (min(step_s) * 1e3)}
+    return out
+
+
+def parallel_path(mesh, card: str, n_cards: int, dryrun) -> dict:
+    """Phase 9; returns its figures."""
+    from tpu_operator_torch.workloads import convburn, moe, pipeline
+
+    figures = {"card": card, "cards": n_cards}
+    for name, run in (("pipeline_run", pipeline.run), ("moe_run", moe.run)):
+        t0 = time.perf_counter()
+        res = run()
+        figures[name] = {**res.__dict__,
+                         "run_seconds": time.perf_counter() - t0}
+        log(f"  {name.replace('_', '.')}(): {res} in "
+            f"{figures[name]['run_seconds']:.1f}s")
+        if not res.correct:
+            raise RuntimeError(f"{name.replace('_', '.')}() diverged from its "
+                               f"oracle: {res}")
+    cfg = convburn.ConvBurninConfig()
+    t0 = time.perf_counter()
+    first, last = convburn.run()
+    figures["conv_run"] = {"config": str(cfg), "first_loss": first,
+                           "last_loss": last,
+                           "run_seconds": time.perf_counter() - t0}
+    log(f"  convburn.run() at {cfg}: first_loss={first!r} "
+        f"last_loss={last!r} in {figures['conv_run']['run_seconds']:.1f}s")
+    if not last < first:
+        raise RuntimeError(f"the conv burn-in's loss did not fall: {first} "
+                           f"-> {last}")
+    r0 = mesh.spawn(parallel_checks_rank, n_cards, "cuda", timeout_s=600)[0]
+    for name in ("pipeline", "pipeline_wide", "moe", "moe_wide"):
+        rep = r0[name]
+        log(f"  {name}: max_abs_err={rep['max_abs_err']!r} "
+            f"oracle_max={rep['oracle_max']!r} ms={rep['ms']!r} ({rep})")
+        if name.endswith("_wide"):
+            limit = WIDE_RTOL * rep["oracle_max"]
+            if not rep["max_abs_err"] <= limit:
+                raise RuntimeError(f"{name} diverged from its oracle: "
+                                   f"{rep['max_abs_err']!r} > {limit!r}")
+        elif not rep["correct"]:
+            raise RuntimeError(f"{name} diverged from its oracle: {rep}")
+    log(f"  conv train step on {r0['conv']['mesh']}: "
+        f"{r0['conv']['step_ms']!r} ms, {r0['conv']['images_per_s']!r} "
+        f"images/s, card idle {r0['conv']['device_idle_share']!r}")
+    figures.update(r0)
+    if dryrun is not None:
+        figures["dryrun_stages"] = {k: dryrun[k] for k in (
+            "conv_loss", "pipeline_stages", "pipeline_err", "moe_experts",
+            "moe_err")}
+    return figures
+
+
 def main() -> int:
     import torch
 
@@ -828,7 +939,17 @@ def main() -> int:
     burnin_figures = burnin_path(mesh, card, torch.cuda.device_count())
     log(json.dumps({"burnin": burnin_figures}))
 
-    # 9. the kernel table
+    # 9. the parallel workloads: no kernel of this repo lies on them (their
+    # products and convolutions are torch's, as JAX leaves them to XLA),
+    # so no count is read here
+    log(f"# phase 9: pipeline, MoE and conv burn-in over "
+        f"{torch.cuda.device_count()} card(s)")
+    torch.cuda.empty_cache()
+    parallel = parallel_path(mesh, card, torch.cuda.device_count(),
+                             burnin_figures.get("dryrun"))
+    log(json.dumps({"parallel_workloads": parallel}))
+
+    # 10. the kernel table
     kernels = [{
         "name": "triad",
         "route": "cuda",

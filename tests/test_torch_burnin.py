@@ -143,8 +143,8 @@ def test_converter_round_trips_and_groups_qkv_by_head():
 
 
 def test_init_params_follows_the_jax_init():
-    model = burnin.init_params(CFG32, seed=3)
-    again = burnin.init_params(CFG32, seed=3)
+    model = burnin.init_params(CFG32, seed=3, device="cpu")
+    again = burnin.init_params(CFG32, seed=3, device="cpu")
     ref = jax_params(JAX32)
     for (name, p), q in zip(model.named_parameters(), again.parameters()):
         assert torch.equal(p, q), name

@@ -27,7 +27,8 @@ PROBE = textwrap.dedent("""
     importlib.import_module("chip_smoke")
 
     from tpu_operator_torch import dryrun
-    from tpu_operator_torch.workloads import backend, burnin
+    from tpu_operator_torch.workloads import (backend, burnin, convburn, moe,
+                                              pipeline)
 
     def refusal(fn):
         try:
@@ -38,6 +39,11 @@ PROBE = textwrap.dedent("""
 
     default = refusal(lambda: backend.resolve_device(None))
     entries = {"burnin.run": refusal(lambda: burnin.run(steps=1)),
+               "pipeline.run": refusal(pipeline.run),
+               "moe.run": refusal(moe.run),
+               "convburn.run": refusal(lambda: convburn.run(steps=1)),
+               "burnin.init_params": refusal(
+                   lambda: burnin.init_params(burnin.BurninConfig())),
                "dryrun_multichip": refusal(
                    lambda: dryrun.dryrun_multichip(2, "cuda"))}
     leaked = sorted(m for m in sys.modules
@@ -70,6 +76,10 @@ def test_port_imports_without_jax_or_the_jax_package():
         "tpu_operator_torch.workloads.ringattention",
         "tpu_operator_torch.parallel.mesh",
         "tpu_operator_torch.parallel.multihost",
+        "tpu_operator_torch.parallel.comm",
+        "tpu_operator_torch.workloads.pipeline",
+        "tpu_operator_torch.workloads.moe",
+        "tpu_operator_torch.workloads.convburn",
         "tpu_operator_torch.workloads.burnin",
         "tpu_operator_torch.workloads.checkpoint",
         "tpu_operator_torch.dryrun",
@@ -80,6 +90,7 @@ def test_port_imports_without_jax_or_the_jax_package():
     assert expected <= set(res["modules"])
     assert res["leaked"] == []
     assert res["default"].startswith("CUDA is not available")
+    assert len(res["entries"]) == 6
     for entry, refusal in res["entries"].items():
         assert refusal.startswith("CUDA is not available"), entry
 

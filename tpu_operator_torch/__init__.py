@@ -9,9 +9,11 @@ protocol, the collective bus factors) it keeps its own copy.
 Package map:
 
 - ``workloads/``  hardware specs, CUDA bring-up, the matmul, HBM-triad and
-                  collective proofs
+                  collective proofs; long-context attention, the burn-in
+                  trainers (transformer, conv), pipeline and MoE
 - ``kernels/``    builds the hand-written CUDA kernels under ``csrc/``
-- ``parallel/``   process-group helpers (NCCL on the card, gloo on the CPU)
+- ``parallel/``   process groups and meshes (NCCL on the card, gloo on the
+                  CPU), the multi-node backend, differentiable collectives
 - ``validator/``  barrier files and the validation components
 - ``cli/``        ``python -m tpu_operator_torch.cli.validator``
 - ``convert.py``  numpy (and JAX-as-numpy) arrays into torch tensors

@@ -5,7 +5,9 @@ bf16 array then has the ``ml_dtypes`` bfloat16 dtype, which
 ``torch.from_numpy`` refuses; it goes through a float32 view and back to
 ``torch.bfloat16``, which is exact (every bf16 value is a float32 value).
 The burn-in's parameter tree is carried across whole, into the port's
-module and back (``burnin_params_from_jax``, ``burnin_params_to_jax``).
+module and back (``burnin_params_from_jax``, ``burnin_params_to_jax``);
+the pipeline's and the MoE's one rank's share at a time (a stage, an
+expert), and the conv burn-in's whole, its filters HWIO to OIHW and back.
 """
 
 from __future__ import annotations
@@ -90,3 +92,51 @@ def burnin_params_to_jax(model, cfg) -> dict:
         layer["qkv"] = _qkv_to_jax(layer["qkv"], cfg.n_heads)
         tree["layers"].append(layer)
     return tree
+
+
+# --- pipeline, MoE and conv parameters --------------------------------------
+#
+# The pipeline's and the MoE's products are stored [in, out] on both
+# sides, so only the stacked leading dim (stage, expert) is cut. The conv
+# filters move from JAX's HWIO to torch's OIHW.
+
+
+def pipeline_params_from_jax(params: dict, stage: int, device=None) -> dict:
+    """Stage ``stage``'s weights (``w1``, ``b1``, ``w2``, ``b2``) from the
+    JAX pipeline's stacked ``[S, ...]`` tree, as ``stage_fn`` takes them."""
+    return {k: to_torch(np.asarray(v)[stage], device)
+            for k, v in params.items()}
+
+
+def moe_params_from_jax(params: dict, expert: int, device=None) -> dict:
+    """What rank ``expert`` holds of the JAX MoE's tree: the router and
+    that expert's ``w1``/``w2``, as ``moe.moe_forward`` takes them."""
+    return {"router": to_torch(params["router"], device),
+            "w1": to_torch(np.asarray(params["w1"])[expert], device),
+            "w2": to_torch(np.asarray(params["w2"])[expert], device)}
+
+
+def _hwio_to_oihw(w) -> np.ndarray:
+    return np.ascontiguousarray(np.asarray(w).transpose(3, 2, 0, 1))
+
+
+def _oihw_to_hwio(w) -> np.ndarray:
+    return np.ascontiguousarray(np.asarray(w).transpose(2, 3, 1, 0))
+
+
+def conv_params_from_jax(params: dict, device=None) -> dict:
+    """The JAX conv burn-in's tree (HWIO filters) as the port's (OIHW)."""
+    return {"stem": to_torch(_hwio_to_oihw(params["stem"]), device),
+            "head": to_torch(params["head"], device),
+            "blocks": [{k: to_torch(_hwio_to_oihw(v) if k.startswith("conv")
+                                    else v, device)
+                        for k, v in b.items()} for b in params["blocks"]]}
+
+
+def conv_params_to_jax(params: dict) -> dict:
+    """The port's conv tree (OIHW) as JAX's (HWIO), leaves numpy."""
+    return {"stem": _oihw_to_hwio(to_numpy(params["stem"])),
+            "head": to_numpy(params["head"]),
+            "blocks": [{k: _oihw_to_hwio(to_numpy(v)) if k.startswith("conv")
+                        else to_numpy(v) for k, v in b.items()}
+                       for b in params["blocks"]]}

@@ -12,17 +12,18 @@ Counterpart of ``dryrun_multichip`` in ``__graft_entry__.py``:
    norms, AdamW; the loss must be finite. A second step runs the FSDP
    layout (parameters and AdamW moments sharded over both axes) on the
    same batch and must reproduce the loss;
-2. context-parallel ring attention over the same ranks (``ringattention``
-   at ``seq_len=16·n, n_heads=2, head_dim=8``, the einsum tile), checked
-   against the single-device oracle;
-3. (n >= 4 and even) two fake slices of n/2 ranks: the hybrid
+2. one conv burn-in training step on the same mesh (channel-parallel
+   convs: column-parallel conv1, row-parallel conv2), a finite loss;
+3. context-parallel ring attention over the same ranks (``ringattention``
+   at ``seq_len=16·n, n_heads=2, head_dim=8``, the einsum tile), the
+   GPipe pipeline with one stage a rank (``batch=8``, 4 microbatches) and
+   the expert-parallel MoE with one expert a rank (8 tokens an expert),
+   each held to its single-device oracle on rank 0;
+4. (n >= 4 and even) two fake slices of n/2 ranks: the hybrid
    [dcn, data, model] and training meshes, a step on the training mesh,
    a checkpoint resume that restores every parameter, AdamW moment and
    step count bit for bit and whose next loss equals the uninterrupted
    run's bit for bit, and the DCN probe over the two slices.
-
-The JAX dry run's conv, pipeline and MoE stages are not ported yet: they
-are reported as such, never as passed.
 """
 
 from __future__ import annotations
@@ -41,11 +42,9 @@ from torch.distributed.tensor import DTensor
 
 from .parallel import mesh as pmesh
 from .parallel import multihost
-from .workloads import burnin, ringattention
+from .workloads import burnin, convburn, moe, pipeline, ringattention
 from .workloads.backend import resolve_device
 from .workloads.checkpoint import TrainCheckpointer
-
-NOT_PORTED = ("conv", "pipeline", "moe")
 
 
 def log(msg: str) -> None:
@@ -192,16 +191,36 @@ def dryrun_rank(rank, world_size, device) -> Dict:
                              f"{float(loss)}")
     summary["fsdp_loss"] = float(floss)
 
+    # the conv model family: channel-parallel convs on the same mesh,
+    # sharded through a full train step
+    mp = mesh["model"].size()
+    ccfg = convburn.ConvBurninConfig(image_size=8, width=8 * mp, n_blocks=1,
+                                     n_classes=8, batch=dp * 2)
+    cstep, cinit = convburn.make_train_step(mesh, ccfg)
+    _, closs = cstep(cinit(5), convburn.make_batch(ccfg, mesh, 6))
+    if not torch.isfinite(closs):
+        raise AssertionError(f"non-finite conv loss: {float(closs)}")
+    summary["conv_loss"] = float(closs)
+
     res = ringattention.context_parallel_case(
         device, "ring", seq_len=16 * n, n_heads=2, head_dim=8, batch=1)
     if rank == 0 and not res.result.correct:
         raise AssertionError(f"ring attention diverged from oracle: {res}")
     summary["ring_attention_err"] = res.result.max_abs_err
-    summary["not_ported"] = list(NOT_PORTED)
+    pp = pipeline.pipeline_case(device, batch=8, n_microbatches=4).result
+    if rank == 0 and not pp.correct:
+        raise AssertionError(f"pipeline forward diverged from oracle: {pp}")
+    ep = moe.moe_case(device, tokens_per_expert=8).result
+    if rank == 0 and not ep.correct:
+        raise AssertionError(f"expert-parallel MoE diverged from oracle: {ep}")
+    summary.update(pipeline_stages=pp.stages, pipeline_err=pp.max_abs_err,
+                   moe_experts=ep.experts, moe_err=ep.max_abs_err)
     log(f"dryrun_multichip({n}): mesh={summary['mesh']} "
         f"loss={summary['loss']:.4f} fsdp_loss={summary['fsdp_loss']:.4f} "
-        f"step={state.step} ring_attention_err={res.result.max_abs_err:.2e}; "
-        f"stages not yet ported: {', '.join(NOT_PORTED)}")
+        f"step={state.step} conv_loss={summary['conv_loss']:.4f} "
+        f"ring_attention_err={res.result.max_abs_err:.2e} "
+        f"pipeline_stages={pp.stages} pipeline_err={pp.max_abs_err:.2e} "
+        f"moe_experts={ep.experts} moe_err={ep.max_abs_err:.2e}")
 
     if n >= 4 and n % 2 == 0:
         summary["hybrid"] = hybrid_and_resume(cfg)

@@ -31,6 +31,8 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from ..workloads.backend import synchronize
+
 DEFAULT_TIMEOUT_S = 300.0
 
 
@@ -107,6 +109,22 @@ def init_ring(rank: int, world_size: int, init_method: str,
         world_size=world_size,
         timeout=datetime.timedelta(seconds=timeout_s), **kwargs)
     return dev
+
+
+def timed(call: Callable, device, repeats: int = 1):
+    """``call()`` on every rank of the current group: one warm-up call,
+    then ``repeats`` calls, each begun together after a barrier with the
+    card drained; returns the last output and the best wall seconds."""
+    out = call()
+    best = math.inf
+    for _ in range(repeats):
+        synchronize(device)
+        dist.barrier()
+        t0 = time.perf_counter()
+        out = call()
+        synchronize(device)
+        best = min(best, time.perf_counter() - t0)
+    return out, best
 
 
 def _rank_main(fn, rank, world_size, init_method, device_type, timeout_s,

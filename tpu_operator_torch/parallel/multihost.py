@@ -103,6 +103,45 @@ def initialize(config: Optional[DistributedConfig] = None
     return cfg
 
 
+def spawn_or_join(fn: Callable, args: Sequence = (), device=None,
+                  world_size: Optional[int] = None):
+    """``fn(rank, world_size, device, *args)`` on every rank of the job;
+    returns rank 0's result (this rank's, in a job that was joined).
+
+    Without CUDA this raises unless the caller asked for the CPU, under
+    torchrun too. A process launched by torchrun (or given the GPU_*
+    contract) joins its job's group (``initialize``) and runs ``fn`` in
+    place; otherwise ``world_size`` ranks are spawned (default: one per
+    visible card over NCCL; ``device="cpu"``: gloo ranks, one unless
+    asked)."""
+    dev_type = resolve_device(device).type
+    if DistributedConfig.from_env().multi_process:
+        initialize()
+        return fn(dist.get_rank(), dist.get_world_size(), local_device(),
+                  *args)
+    if world_size is None:
+        world_size = torch.cuda.device_count() if dev_type == "cuda" else 1
+    return mesh.spawn(fn, world_size, dev_type, args=tuple(args))[0]
+
+
+def axis_group(m, name: str):
+    """The process group of ``m``'s axis ``name``, or None where there is
+    no mesh or the axis has one rank (nothing to reduce over)."""
+    if m is None or m[name].size() == 1:
+        return None
+    return m.get_group(name)
+
+
+def data_rows(t: torch.Tensor, m) -> torch.Tensor:
+    """This rank's rows of a global [B, ...] tensor: ``m``'s data axis
+    shards the batch (``m=None``: every row)."""
+    if m is None:
+        return t
+    n, i = m["data"].size(), m["data"].get_local_rank()
+    rows = t.shape[0] // n
+    return t[i * rows:(i + 1) * rows]
+
+
 def local_device() -> torch.device:
     """This rank's device: its card under NCCL, else the CPU."""
     if mesh.device_type() == "cuda":

@@ -49,7 +49,6 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
 
-from ..parallel import mesh as pmesh
 from ..parallel import multihost
 from .backend import resolve_device
 
@@ -172,11 +171,12 @@ class BurninLM(nn.Module):
 
 
 def init_params(cfg: BurninConfig, seed: int = 0,
-                device="cpu") -> BurninLM:
-    """The model, f32, drawn from its own ``torch.Generator`` in the JAX
-    init's order and scales (normal·0.02 for the embedding, normal /
-    sqrt(fan_in) for the products, ones for the norms). The draws differ
-    from JAX's ``PRNGKey``; tests carry JAX's parameters across through
+                device=None) -> BurninLM:
+    """The model, f32, on ``device`` (``None`` means ``cuda:0``), drawn
+    from its own ``torch.Generator`` in the JAX init's order and scales
+    (normal·0.02 for the embedding, normal / sqrt(fan_in) for the
+    products, ones for the norms). The draws differ from JAX's
+    ``PRNGKey``; tests carry JAX's parameters across through
     ``convert.burnin_params_from_jax``."""
     gen = torch.Generator().manual_seed(seed)
     model = BurninLM(cfg)
@@ -192,7 +192,7 @@ def init_params(cfg: BurninConfig, seed: int = 0,
         normal(layer.attn_out, 1.0 / math.sqrt(cfg.d_model))
         normal(layer.ff_in, 1.0 / math.sqrt(cfg.d_model))
         normal(layer.ff_out, 1.0 / math.sqrt(cfg.d_ff))
-    return model.to(device)
+    return model.to(resolve_device(device))
 
 
 # --- placements -------------------------------------------------------------
@@ -306,13 +306,6 @@ class TrainState:
         self.step = int(state["step"])
 
 
-def _data_group(mesh):
-    """The data axis's process group, or None where it has one rank."""
-    if mesh is None or mesh["data"].size() == 1:
-        return None
-    return mesh.get_group("data")
-
-
 def make_train_step(mesh, cfg: BurninConfig, optimizer: Optional[Callable] = None,
                     fsdp: bool = False, device=None):
     """Returns (step_fn, init_state, shard_batch): ``step_fn(state,
@@ -324,7 +317,7 @@ def make_train_step(mesh, cfg: BurninConfig, optimizer: Optional[Callable] = Non
     (default ``adamw(cfg.learning_rate)``). ``mesh=None`` runs on one
     device, ``device`` (default ``cuda:0``)."""
     optimizer = optimizer or adamw(cfg.learning_rate)
-    group = _data_group(mesh)
+    group = multihost.axis_group(mesh, "data")
     dp = 1 if group is None else dist.get_world_size(group)
     dev = multihost.local_device() if mesh is not None else resolve_device(device)
 
@@ -358,19 +351,10 @@ def make_train_step(mesh, cfg: BurninConfig, optimizer: Optional[Callable] = Non
         return state, loss
 
     def shard_batch(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        return {k: _data_rows(v, mesh).to(dev) for k, v in batch.items()}
+        return {k: multihost.data_rows(v, mesh).to(dev)
+                for k, v in batch.items()}
 
     return train_step, init_state, shard_batch
-
-
-def _data_rows(t: torch.Tensor, mesh) -> torch.Tensor:
-    """This rank's rows of a global [B, ...] tensor: the data axis shards
-    the batch."""
-    if mesh is None:
-        return t
-    n, i = mesh["data"].size(), mesh["data"].get_local_rank()
-    rows = t.shape[0] // n
-    return t[i * rows:(i + 1) * rows]
 
 
 def global_batch(cfg: BurninConfig, seed: int) -> Dict[str, torch.Tensor]:
@@ -387,7 +371,7 @@ def make_batch(cfg: BurninConfig, mesh, seed: int,
     """This rank's rows of ``global_batch(cfg, seed)``, on its device
     (``mesh=None``: the whole batch on ``device``)."""
     dev = multihost.local_device() if mesh is not None else resolve_device(device)
-    return {k: _data_rows(v, mesh).to(dev)
+    return {k: multihost.data_rows(v, mesh).to(dev)
             for k, v in global_batch(cfg, seed).items()}
 
 
@@ -395,7 +379,7 @@ def eval_loss(model: BurninLM, batch, mesh) -> torch.Tensor:
     """The loss without a step, averaged over the data axis."""
     with torch.no_grad():
         loss = loss_fn(model, batch)
-    group = _data_group(mesh)
+    group = multihost.axis_group(mesh, "data")
     if group is not None:
         dist.all_reduce(loss, group=group)
         loss /= dist.get_world_size(group)
@@ -477,16 +461,7 @@ def run(cfg: Optional[BurninConfig] = None, steps: int = 5,
     runs ``burnin_rank`` in place."""
     cfg = cfg or BurninConfig()
     args = (cfg, steps, model_parallel, checkpoint_dir, checkpoint_every)
-    # first: without CUDA this raises unless the caller asked for the CPU,
-    # under torchrun too
-    dev_type = resolve_device(device).type
-    if multihost.DistributedConfig.from_env().multi_process:
-        multihost.initialize()
-        return burnin_rank(dist.get_rank(), dist.get_world_size(),
-                           multihost.local_device(), *args)
-    if world_size is None:
-        world_size = torch.cuda.device_count() if dev_type == "cuda" else 1
-    return pmesh.spawn(burnin_rank, world_size, dev_type, args=args)[0]
+    return multihost.spawn_or_join(burnin_rank, args, device, world_size)
 
 
 def main() -> int:

@@ -10,7 +10,7 @@ group, each rank holding its own sequence shard in [B, S_local, H, D]:
   ring of ranks (rank r sends to r+1 and receives from r-1, one batched
   P2P exchange per hop) while each rank's Q stays put; partial results
   merge with an online softmax (running max + normaliser), so the result
-  is exact. Differentiable through the ``_RingShift`` function, whose
+  is exact. Differentiable through ``parallel.comm.RingShift``, whose
   backward sends the cotangent the other way round the ring.
 - **Ulysses / all-to-all** (``ulysses_attention``): ``all_to_all_single``
   re-shards [B, S/n, H, D] -> [B, S, H/n, D], runs plain attention over
@@ -31,7 +31,7 @@ from typing import List, NamedTuple, Optional, Sequence
 import torch
 import torch.distributed as dist
 
-from ..parallel import mesh
+from ..parallel import comm, mesh
 from .backend import resolve_device, synchronize
 from .flashattention import (NEG_INF, flash_attention_blocks,
                              flash_attention_blocks_reference)
@@ -101,47 +101,6 @@ def merge(o, l, m, bo, bm, bl):
     return o, l, m_new
 
 
-def _ring_peer(group, step: int) -> tuple:
-    """Global ranks (destination, source) ``step`` places round the ring."""
-    n, rank = dist.get_world_size(group), dist.get_rank(group)
-    dst, src = (rank + step) % n, (rank - step) % n
-    if group is not None:
-        dst = dist.get_global_rank(group, dst)
-        src = dist.get_global_rank(group, src)
-    return dst, src
-
-
-def _shift(k, v, group, step: int):
-    """k and v ``step`` ranks along the ring, in one batched exchange
-    (unbatched NCCL send/recv pairs can deadlock)."""
-    dst, src = _ring_peer(group, step)
-    k, v = k.contiguous(), v.contiguous()
-    k_in, v_in = torch.empty_like(k), torch.empty_like(v)
-    reqs = dist.batch_isend_irecv([
-        dist.P2POp(dist.isend, k, dst, group),
-        dist.P2POp(dist.isend, v, dst, group),
-        dist.P2POp(dist.irecv, k_in, src, group),
-        dist.P2POp(dist.irecv, v_in, src, group),
-    ])
-    for r in reqs:
-        r.wait()
-    return k_in, v_in
-
-
-class _RingShift(torch.autograd.Function):
-    """One hop: rank r's block goes to r+1; the cotangent goes back."""
-
-    @staticmethod
-    def forward(ctx, k, v, group):
-        ctx.group = group
-        return _shift(k, v, group, +1)
-
-    @staticmethod
-    def backward(ctx, dk, dv):
-        dk, dv = _shift(dk, dv, ctx.group, -1)
-        return dk, dv, None
-
-
 class _ForwardOnly(torch.autograd.Function):
     """Passes ``out`` through and refuses a gradient: kernel B2 has no
     backward, as the Pallas kernel defines no VJP."""
@@ -177,7 +136,7 @@ def _ring_attention_local(q, k, v, group, causal: bool, use_flash: bool):
     k_blk, v_blk = k, v
     for i in range(n - 1):
         o, l, m = attend(i, o, l, m, k_blk, v_blk)
-        k_blk, v_blk = _RingShift.apply(k_blk, v_blk, group)
+        k_blk, v_blk = comm.RingShift.apply(group, k_blk, v_blk)
     o, l, _ = attend(n - 1, o, l, m, k_blk, v_blk)
     l = torch.where(l == 0.0, 1.0, l)  # fully-masked rows output zeros
     return (o / l.transpose(1, 2)[..., None]).to(q.dtype)
@@ -202,23 +161,6 @@ def ring_attention(q, k, v, group=None, causal: bool = True,
     return out
 
 
-class _AllToAll(torch.autograd.Function):
-    """``all_to_all_single`` in equal blocks of dim 0; its backward is the
-    same exchange of the cotangent."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        x = x.contiguous()
-        out = torch.empty_like(x)
-        dist.all_to_all_single(out, x, group=group)
-        return out
-
-    @staticmethod
-    def backward(ctx, grad):
-        return _AllToAll.apply(grad, ctx.group), None
-
-
 def ulysses_attention(q, k, v, group=None, causal: bool = True):
     """All-to-all sequence parallelism (Ulysses) over ``group``; call on
     every rank with its [B, S_local, H, D] shard. Needs n_heads % n == 0.
@@ -231,14 +173,14 @@ def ulysses_attention(q, k, v, group=None, causal: bool = True):
 
     def to_sequence(t):  # [B, S_local, H, D] -> [B, S, H/n, D]
         # heads lead, so rank j's block of dim 0 is head group j
-        y = _AllToAll.apply(t.permute(2, 0, 1, 3), group)
+        y = comm.all_to_all(t.permute(2, 0, 1, 3), group)
         # block i came from rank i: its sequence shard of this rank's heads
         return y.reshape(n, hl, B, s_local, D).permute(2, 0, 3, 1, 4) \
             .reshape(B, n * s_local, hl, D)
 
     def to_heads(t):     # [B, S, H/n, D] -> [B, S_local, H, D]
         x = t.reshape(B, n, s_local, hl, D).permute(1, 3, 0, 2, 4)
-        y = _AllToAll.apply(x.reshape(H, B, s_local, D), group)
+        y = comm.all_to_all(x.reshape(H, B, s_local, D), group)
         # block j came from rank j: this rank's shard of head group j
         return y.permute(1, 2, 0, 3)
 
