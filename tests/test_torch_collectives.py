@@ -8,6 +8,7 @@ from functools import partial
 import jax
 import numpy as np
 import pytest
+import torch
 from jax.sharding import PartitionSpec as P
 
 from tpu_operator.parallel.mesh import ring_mesh, shard_map
@@ -36,10 +37,15 @@ def _jax_outputs(op, n):
 
 
 def _rank_probe(rank, world_size, device, ops):
-    """One spawn does it all: every op once on the oracle input, then the
-    timed suite at a tiny size."""
+    """One spawn does it all: every op once on the oracle input, the
+    all-reduce step's storage, then the timed suite at a tiny size."""
+    c = torch.full((8 * world_size,), float(rank + 1))
+    ptr = c.data_ptr()
+    out = collectives._step("all_reduce", c, world_size, rank)
     return {
         "oracle": {op: collectives.oracle_outputs(op, device) for op in ops},
+        "all_reduce_in_place": (out.data_ptr() == ptr, out is c,
+                                out.numpy().copy()),
         "suite": collectives.measure_suite(device, size_mb=0.01, iters=2,
                                            repeats=1, ops=ops),
     }
@@ -74,6 +80,17 @@ def test_each_rank_matches_jax_step(gloo_ranks, op):
     for rank, res in enumerate(gloo_ranks):
         np.testing.assert_array_equal(res["oracle"][op], want[rank])
     np.testing.assert_array_equal(collectives.oracle_want(op, WORLD), want)
+
+
+def test_all_reduce_step_makes_no_copy(gloo_ranks):
+    """JAX's step is ``psum(c) * (1/n)`` with no rebuild inside the timed
+    loop: the port's all-reduce step reduces and scales its input in
+    place and returns that same storage (the mean of 1 and 2 is 1.5)."""
+    for res in gloo_ranks:
+        same_ptr, same_tensor, values = res["all_reduce_in_place"]
+        assert same_ptr and same_tensor
+        np.testing.assert_array_equal(values, np.full(8 * WORLD, 1.5,
+                                                      np.float32))
 
 
 @pytest.mark.parametrize("op", OPS)

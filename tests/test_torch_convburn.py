@@ -5,7 +5,9 @@ logits and loss, and one AdamW step the same loss and parameters, in f32
 within 1e-5; bf16 logits within the burn-in's 2**-4. One spawn of four
 gloo ranks (body in tests/torch_parallel_ranks.py): the channel-parallel
 2x2 [data, model] step equals world size 1 within 1e-5 in f32, and
-``run()``'s body makes the loss fall."""
+``run()``'s body makes the loss fall. At JAX's own test configuration,
+JAX's init and JAX's eight batches carried into the port's train step
+give JAX's eight losses."""
 
 import concurrent.futures
 import dataclasses
@@ -16,6 +18,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+from jax.sharding import Mesh
 
 import torch_parallel_ranks as body
 from tpu_operator.workloads import convburn as jax_conv
@@ -35,6 +38,9 @@ F32_RTOL = 1e-5
 BF16_LOGITS_ATOL = 2.0 ** -4
 # the 2x2 step against world size 1, f32
 TP_ATOL = 1e-5
+# JAX's test configuration (tests/test_workloads.py, TestConvBurnin), f32
+JAX_TEST = dict(image_size=16, width=16, n_blocks=2, n_classes=8, batch=8)
+JAX_TEST_STEPS = 8
 
 
 def jax_params(cfg, seed=0):
@@ -122,6 +128,48 @@ def test_one_adamw_step_matches_jax():
                             jax.tree_util.tree_leaves(got)):
         np.testing.assert_allclose(g, np.asarray(w), rtol=0, atol=F32_RTOL,
                                    err_msg=jax.tree_util.keystr(path))
+
+
+@pytest.fixture(scope="module")
+def eight_losses():
+    """JAX's ``run()`` body on a 1x1 mesh at its test configuration in
+    f32: ``init_params(PRNGKey(0))`` and ``make_batch`` on
+    ``fold_in(PRNGKey(0), i)``; the same init and batches (NHWC -> NCHW)
+    through the port's train step. Returns (JAX's losses, the port's)."""
+    jcfg = jax_conv.ConvBurninConfig(**JAX_TEST, dtype=jnp.float32)
+    cfg = convburn.ConvBurninConfig(**JAX_TEST, dtype=torch.float32)
+    jmesh = Mesh(np.array(jax.devices()[:1]).reshape(1, 1), ("data", "model"))
+    jstep, jinit = jax_conv.make_train_step(jmesh, jcfg)
+    key = jax.random.PRNGKey(0)
+    params = jax.tree.map(np.asarray, jax_conv.init_params(jcfg, key))
+    jstate = jinit(key)
+    batches, want = [], []
+    for i in range(JAX_TEST_STEPS):
+        b = jax_conv.make_batch(jcfg, jmesh, jax.random.fold_in(key, i))
+        batches.append({k: np.asarray(v) for k, v in b.items()})
+        jstate, loss = jstep(jstate, b)
+        want.append(float(loss))
+    step, _ = convburn.make_train_step(None, cfg, device="cpu")
+    tparams = convert.conv_params_from_jax(params, "cpu")
+    tleaves = convburn.leaves(tparams)
+    for p in tleaves:
+        p.requires_grad_(True)
+    state = convburn.ConvTrainState(
+        tparams, burnin.adamw(cfg.learning_rate)(tleaves))
+    got = []
+    for b in batches:
+        state, loss = step(state, torch_batch(b))
+        got.append(float(loss))
+    return want, got
+
+
+@pytest.mark.parametrize("i", range(JAX_TEST_STEPS))
+def test_eight_losses_match_jax_at_its_test_config(eight_losses, i):
+    """With JAX's init and draws the port's losses are JAX's, step by
+    step (so the port's own draws, not its step, made its loss rise
+    at this size)."""
+    want, got = eight_losses
+    assert got[i] == pytest.approx(want[i], rel=F32_RTOL)
 
 
 def test_params_round_trip_through_convert():

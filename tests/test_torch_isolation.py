@@ -26,7 +26,7 @@ PROBE = textwrap.dedent("""
         importlib.import_module(m)
     importlib.import_module("chip_smoke")
 
-    from tpu_operator_torch import dryrun
+    from tpu_operator_torch import dryrun, entry
     from tpu_operator_torch.workloads import (backend, burnin, convburn, moe,
                                               pipeline)
 
@@ -45,7 +45,8 @@ PROBE = textwrap.dedent("""
                "burnin.init_params": refusal(
                    lambda: burnin.init_params(burnin.BurninConfig())),
                "dryrun_multichip": refusal(
-                   lambda: dryrun.dryrun_multichip(2, "cuda"))}
+                   lambda: dryrun.dryrun_multichip(2, "cuda")),
+               "entry": refusal(entry.entry)}
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "tpu_operator")
                     and sys.modules[m] is not None)
@@ -86,11 +87,18 @@ def test_port_imports_without_jax_or_the_jax_package():
         "tpu_operator_torch.validator.barrier",
         "tpu_operator_torch.validator.components",
         "tpu_operator_torch.cli.validator",
+        "tpu_operator_torch.api.labels",
+        "tpu_operator_torch.runtime.kubeclient",
+        "tpu_operator_torch.validator.workload",
+        "tpu_operator_torch.validator.metrics",
+        "tpu_operator_torch.metrics.gpu_exporter",
+        "tpu_operator_torch.entry",
+        "tpu_operator_torch.workloads.elastic",
     }
     assert expected <= set(res["modules"])
     assert res["leaked"] == []
     assert res["default"].startswith("CUDA is not available")
-    assert len(res["entries"]) == 6
+    assert len(res["entries"]) == 7
     for entry, refusal in res["entries"].items():
         assert refusal.startswith("CUDA is not available"), entry
 

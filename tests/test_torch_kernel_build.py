@@ -1,6 +1,8 @@
 """The kernels' build key (tpu_operator_torch.kernels.build.library_path):
 a library is rebuilt when its source, a header of ``csrc/`` or the flags
-change, and only then. Runs on the CPU; nothing is compiled."""
+change, and only then; a host program (``host_program_path``) when its
+own source or the host flags change. Runs on the CPU; nothing is
+compiled."""
 
 import pytest
 
@@ -32,6 +34,28 @@ def test_library_path_follows_flags(csrc, monkeypatch):
     before = build.library_path("k")
     monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ("-G",))
     assert build.library_path("k") != before
+
+
+@pytest.mark.parametrize("edit, rebuilds", [
+    ("t.cc", True),
+    ("helpers.cuh", False),
+    ("k.cu", False),
+])
+def test_host_program_path_follows_its_source_only(csrc, edit, rebuilds):
+    (csrc / "t.cc").write_text("int main() { return 0; }\n")
+    before = build.host_program_path("t")
+    path = csrc / edit
+    path.write_text(path.read_text() + "// x\n")
+    assert (build.host_program_path("t") != before) is rebuilds
+    assert before.parent == build.BUILD_DIR and before.name.startswith("t-")
+
+
+def test_host_program_path_follows_flags(csrc, monkeypatch):
+    (csrc / "t.cc").write_text("int main() { return 0; }\n")
+    before = build.host_program_path("t")
+    monkeypatch.setattr(build, "HOST_LINK_FLAGS",
+                        build.HOST_LINK_FLAGS + ("-lm",))
+    assert build.host_program_path("t") != before
 
 
 def test_library_path_names_the_kernel_under_the_build_dir(csrc):

@@ -19,6 +19,10 @@ from tpu_operator_torch.workloads import collectives, hbm_probe, matmul
 STATUS_RENAMES = {"jax-ready": "cuda-ready", "ici-ready": "nvlink-ready"}
 KEY_RENAMES = {"MXU_UTILIZATION": "TENSOR_CORE_UTILIZATION"}
 CHAIN = ("driver", "runtime", "cuda", "hbm", "nvlink", "dcn")
+# the files the in-process chain writes: every known one but plugin-ready,
+# which the plugin pod's proof writes
+CHAIN_FILES = ("driver-ready", "runtime-ready", "cuda-ready", "hbm-ready",
+               "nvlink-ready", "dcn-ready")
 SMALL = {"MATMUL_SIZE": "64", "HBM_SIZE_MB": "2"}
 
 
@@ -82,8 +86,7 @@ def test_chain_writes_barriers_with_the_jax_keys(cpu_chain_env, tmp_path,
                                                  monkeypatch):
     for comp in CHAIN:
         getattr(components, f"validate_{comp}")()
-    port = {name: barrier.read_status(name)
-            for name in barrier.KNOWN_STATUS_FILES}
+    port = {name: barrier.read_status(name) for name in CHAIN_FILES}
     assert all(info is not None for info in port.values()), port
     assert port["nvlink-ready"]["SKIPPED"].startswith("single-card host")
     assert port["dcn-ready"]["SKIPPED"].startswith("single-node job")
@@ -99,8 +102,8 @@ def test_chain_writes_barriers_with_the_jax_keys(cpu_chain_env, tmp_path,
 def test_cli_runs_the_chain_and_cleans_up(cpu_chain_env):
     for comp in CHAIN:
         assert cli.main(["-c", comp]) == 0, comp
-    assert sorted(os.listdir(cpu_chain_env)) == sorted(
-        barrier.KNOWN_STATUS_FILES)
+    assert sorted(os.listdir(cpu_chain_env)) == sorted(CHAIN_FILES)
+    barrier.write_status("plugin-ready", {"WORKLOAD_PHASE": "Succeeded"})
     assert cli.main(["cleanup"]) == 0
     assert os.listdir(cpu_chain_env) == []
 
@@ -290,5 +293,5 @@ def test_barrier_defaults_are_the_ports_own(monkeypatch):
     monkeypatch.delenv("GPU_VALIDATION_DIR", raising=False)
     assert str(barrier.validation_dir()) == "/run/nvidia/validations"
     assert set(barrier.KNOWN_STATUS_FILES) == {
-        "driver-ready", "runtime-ready", "cuda-ready", "hbm-ready",
-        "nvlink-ready", "dcn-ready"}
+        "driver-ready", "runtime-ready", "cuda-ready", "plugin-ready",
+        "hbm-ready", "nvlink-ready", "dcn-ready"}

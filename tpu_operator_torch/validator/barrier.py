@@ -23,6 +23,7 @@ KNOWN_STATUS_FILES = (
     "driver-ready",
     "runtime-ready",
     "cuda-ready",
+    "plugin-ready",
     "hbm-ready",
     "nvlink-ready",
     "dcn-ready",

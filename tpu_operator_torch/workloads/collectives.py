@@ -65,15 +65,17 @@ class CollectiveResult:
 
 def _step(op: str, c: torch.Tensor, n: int, rank: int) -> torch.Tensor:
     """One shape-stable execution of a collective on this rank's 1-D
-    shard ``c`` (left unchanged), shared by the timed chain and the
-    oracle so the two cannot drift apart. The reduce_scatter output is
-    1/n of its input and is re-expanded by an all_gather, so that chain
-    times the RS+AG pair and its per-op figure is conservative."""
+    shard ``c``, shared by the timed chain and the oracle so the two
+    cannot drift apart. ``all_reduce`` updates ``c`` in place and returns
+    it (JAX's ``psum(c) * (1/n)`` with no copy: the timed chain's all-ones
+    input averages to ones again); every other op leaves ``c`` unchanged
+    and returns a new tensor. The reduce_scatter output is 1/n of its
+    input and is re-expanded by an all_gather, so that chain times the
+    RS+AG pair and its per-op figure is conservative."""
     k = c.numel()
     if op == "all_reduce":
-        y = c.clone()
-        dist.all_reduce(y)
-        return y.mul_(1.0 / n)
+        dist.all_reduce(c)
+        return c.mul_(1.0 / n)
     if op == "all_gather":
         g = torch.empty(n * k, dtype=c.dtype, device=c.device)
         dist.all_gather_into_tensor(g, c)
