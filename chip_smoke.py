@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py    # from the root of a checkout, on a CUDA host
 
-Five paths of ``tpu_operator_torch`` are driven. The per-node validation
+Six paths of ``tpu_operator_torch`` are driven. The per-node validation
 chain (driver -> runtime -> cuda -> hbm -> nvlink -> dcn) runs through its
 CLI at the DaemonSet's sizes (MATMUL_SIZE=4096, HBM_SIZE_MB=512). The
 long-context path runs ring and Ulysses attention through
@@ -14,7 +14,8 @@ over every visible card, with its checkpoint/resume, the DCN probe and
 the multi-card dry run. The pipeline, the expert-parallel MoE and the
 conv burn-in run over every visible card. The node's status exporter,
 the CUDA validation pod's payload, chip telemetry over NVML and the
-forward entry point run on the card. Phases, each fatal:
+forward entry point run on the card, and the node's allocation plane
+hands the card to child processes. Phases, each fatal:
 
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
 2. build the hand-written kernels from the checkout's sources, one nvcc
@@ -69,6 +70,19 @@ A (in phase 4). the node-status exporter over the chain's barrier files:
    against the step with a copy first, at 256 MB a rank over every card,
    with NCCL's algorithm choice (TUNING debug); on one card nothing
    crosses a link, and the two steps differ by the copy;
+E. the node's allocation plane, against a stub apiserver (one Node, GET,
+   metadata-only GET, merge-PATCH) and a stub kubelet (Registration on a
+   unix socket): the driver agent's versions equal nvidia-smi's, the
+   runtime agent's card nodes open, preflight clears every gate; the
+   shared plugin lists gpu0..gpuN-1 with torch's UUIDs, and its
+   Allocate's card is the one a child sees alone by UUID; the health
+   engine warns on a card filled to 0.95 of NVML's total and clears when
+   it is freed, and a FAILing card is advertised Unhealthy; the fence
+   moves cards to the isolated plugin; a vGPU profile re-registers it as
+   nvidia.com/vgpu, and PyTorch's allocator holds two children to the
+   budget of its Allocate (0.9 of it fits, 1.1 raises OOM); fencing-ready,
+   vgpu-ready and their gauges; the fence withdrawn; feature discovery's
+   labels, patched once. No kernel launches in it;
 14. print the kernel table as one JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``; on any failure the
@@ -796,10 +810,15 @@ def prom_series(text: str) -> dict:
 
 
 def http_get(url: str) -> tuple:
+    """(status, body) of a GET, an error status included."""
+    import urllib.error
     import urllib.request
 
-    with urllib.request.urlopen(url, timeout=10) as resp:
-        return resp.status, resp.read()
+    try:
+        with urllib.request.urlopen(url, timeout=10) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
 
 
 def node_exporter_phase(barrier, files: dict) -> dict:
@@ -1135,6 +1154,634 @@ def allreduce_step_phase(mesh, n_cards: int, card: str) -> dict:
             "nccl_lines_total": len(lines)}
 
 
+# phase E: the node's allocation plane. The fence of a four-card host
+# (two cards left to the shared pool), the vGPU profile, and the share
+# of each budget child's allocation: 0.9 of the budget must fit, 1.1 must
+# raise the allocator's OOM
+FENCE_FOUR_CARDS = ("gpu1", "gpu3")
+VGPU_PROFILES_YAML = "profiles:\n  vgpu-2:\n    vgpusPerCard: 2\n"
+BUDGET_SHARES = (0.9, 1.1)
+# the health engine's HBM rule fires at 0.95 of NVML's total; the fill
+# aims a little past it
+HBM_FILL_TARGET = 0.96
+# a child given one card by UUID: it must see that card alone and run a
+# bf16 product on it; its timestamps go from start to CUDA ready
+ALLOCATED_CHILD = """
+import json, time
+t = {"main": time.time()}
+import torch
+t["torch_imported"] = time.time()
+n = torch.cuda.device_count()
+p = torch.cuda.get_device_properties(0)
+a = torch.randn(4096, 4096, device="cuda", dtype=torch.bfloat16)
+c = a @ a
+torch.cuda.synchronize()
+t["cuda_ready"] = time.time()
+print(json.dumps({"count": n, "uuid": "GPU-" + str(p.uuid),
+                  "finite": bool(torch.isfinite(c).all()), "t": t}))
+"""
+# a child under a vGPU's env: it allocates SHARE of its budget, the
+# fraction in PYTORCH_CUDA_ALLOC_CONF of torch's total, in one tensor
+BUDGET_CHILD = """
+import json, os, sys, time
+t = {"main": time.time()}
+import torch
+share = float(sys.argv[1])
+conf = os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+fraction = float(conf.split("per_process_memory_fraction:")[1].split(",")[0])
+free, total = torch.cuda.mem_get_info()
+t["cuda_ready"] = time.time()
+budget = int(fraction * total)
+out = {"share": share, "fraction": fraction, "torch_total": total,
+       "budget_bytes": budget, "count": torch.cuda.device_count(),
+       "uuid": "GPU-" + str(torch.cuda.get_device_properties(0).uuid)}
+try:
+    x = torch.empty(int(share * budget), dtype=torch.uint8, device="cuda")
+    x.fill_(1)
+    torch.cuda.synchronize()
+    out["allocated"] = True
+except torch.OutOfMemoryError as e:
+    out["allocated"] = False
+    out["oom"] = str(e).splitlines()[0][:400]
+t["done"] = time.time()
+out["t"] = t
+print(json.dumps(out))
+"""
+
+
+def merge_patch(target: dict, patch: dict) -> dict:
+    """RFC 7386: a None value removes its key, a dict merges."""
+    for k, v in patch.items():
+        if v is None:
+            target.pop(k, None)
+        elif isinstance(v, dict):
+            base = target.get(k)
+            target[k] = merge_patch(base if isinstance(base, dict) else {}, v)
+        else:
+            target[k] = v
+    return target
+
+
+class StubApiserver:
+    """One Node over HTTP on 127.0.0.1: GET (whole, or its metadata under
+    the PartialObjectMetadata Accept) and merge-PATCH; records each
+    request's method, Accept and Content-Type."""
+
+    def __init__(self, node_name: str, labels: dict):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        self.node = {"apiVersion": "v1", "kind": "Node",
+                     "metadata": {"name": node_name, "labels": dict(labels)},
+                     "status": {"capacity": {}}}
+        self.requests = []
+        path = f"/api/v1/nodes/{node_name}"
+        stub = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def _answer(self, code, doc):
+                body = json.dumps(doc).encode()
+                self.send_response(code)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def do_GET(self):
+                accept = self.headers.get("Accept", "")
+                stub.requests.append(("GET", accept, ""))
+                if self.path != path:
+                    return self._answer(404, {"reason": "NotFound"})
+                if "as=PartialObjectMetadata" in accept:
+                    return self._answer(200, {
+                        "apiVersion": "meta.k8s.io/v1",
+                        "kind": "PartialObjectMetadata",
+                        "metadata": stub.node["metadata"]})
+                self._answer(200, stub.node)
+
+            def do_PATCH(self):
+                ctype = self.headers.get("Content-Type", "")
+                body = json.loads(self.rfile.read(
+                    int(self.headers["Content-Length"])))
+                stub.requests.append(("PATCH", "", ctype))
+                if self.path != path:
+                    return self._answer(404, {"reason": "NotFound"})
+                if ctype != "application/merge-patch+json":
+                    return self._answer(415, {"reason": ctype})
+                merge_patch(stub.node, body)
+                self._answer(200, stub.node)
+
+            def log_message(self, *args):
+                pass
+
+        self.server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        threading.Thread(target=self.server.serve_forever,
+                         daemon=True).start()
+        self.url = f"http://127.0.0.1:{self.server.server_address[1]}"
+
+    def labels(self) -> dict:
+        return dict(self.node["metadata"].get("labels") or {})
+
+    def stop(self):
+        self.server.shutdown()
+        self.server.server_close()
+
+
+class StubKubelet:
+    """kubelet's v1beta1.Registration on ``<socket_dir>/kubelet.sock``."""
+
+    def __init__(self, socket_dir: str):
+        import grpc
+        from concurrent import futures
+
+        from tpu_operator_torch.deviceplugin import api_pb2 as pb
+
+        self.registrations = []
+
+        def register(request, context):
+            self.registrations.append(request.resource_name)
+            return pb.Empty()
+
+        self._server = grpc.server(futures.ThreadPoolExecutor(max_workers=2))
+        self._server.add_generic_rpc_handlers((
+            grpc.method_handlers_generic_handler("v1beta1.Registration", {
+                "Register": grpc.unary_unary_rpc_method_handler(
+                    register,
+                    request_deserializer=pb.RegisterRequest.FromString,
+                    response_serializer=pb.Empty.SerializeToString)}),))
+        self._server.add_insecure_port(
+            f"unix://{os.path.join(socket_dir, 'kubelet.sock')}")
+        self._server.start()
+
+    def wait_for(self, resource: str, limit_s: float = 20.0) -> None:
+        deadline = time.monotonic() + limit_s
+        while resource not in self.registrations:
+            if time.monotonic() > deadline:
+                raise RuntimeError(f"the kubelet saw {self.registrations}, "
+                                   f"never {resource}")
+            time.sleep(0.05)
+
+    def stop(self):
+        self._server.stop(grace=0.2)
+
+
+class PluginClient:
+    """A kubelet's side of one plugin's socket: a ListAndWatch stream
+    kept open, and Allocate."""
+
+    def __init__(self, socket_path: str):
+        import grpc
+
+        from tpu_operator_torch.deviceplugin import api_pb2 as pb
+
+        self.pb = pb
+        self.channel = grpc.insecure_channel(f"unix://{socket_path}")
+        law = self.channel.unary_stream(
+            "/v1beta1.DevicePlugin/ListAndWatch",
+            request_serializer=pb.Empty.SerializeToString,
+            response_deserializer=pb.ListAndWatchResponse.FromString)
+        self.stream = law(pb.Empty(), timeout=600)
+        self._allocate = self.channel.unary_unary(
+            "/v1beta1.DevicePlugin/Allocate",
+            request_serializer=pb.AllocateRequest.SerializeToString,
+            response_deserializer=pb.AllocateResponse.FromString)
+
+    def next_list(self) -> dict:
+        """The stream's next device list, {ID: health}."""
+        return {d.ID: d.health for d in next(self.stream).devices}
+
+    def allocate(self, ids) -> tuple:
+        """(envs, host paths, ms) of one container's allocation."""
+        req = self.pb.AllocateRequest()
+        req.container_requests.add(devicesIDs=list(ids))
+        t0 = time.perf_counter()
+        resp = self._allocate(req, timeout=60)
+        ms = (time.perf_counter() - t0) * 1e3
+        [c] = resp.container_responses
+        return dict(c.envs), [d.host_path for d in c.devices], ms
+
+    def close(self):
+        self.stream.cancel()
+        self.channel.close()
+
+
+def smi_query(*fields: str) -> list:
+    out = subprocess.run(
+        ["nvidia-smi", f"--query-gpu={','.join(fields)}",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return [[f.strip() for f in line.split(",")]
+            for line in out.stdout.strip().splitlines()]
+
+
+def smi_cuda_version() -> int:
+    """nvidia-smi's CUDA version as cuDriverGetVersion counts it
+    (13.0 -> 13000)."""
+    out = subprocess.run(["nvidia-smi", "-q", "-x"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    m = re.search(r"<cuda_version>(\d+)\.(\d+)</cuda_version>", out.stdout)
+    if not m:
+        raise RuntimeError("nvidia-smi -q -x gave no cuda_version")
+    return int(m.group(1)) * 1000 + int(m.group(2)) * 10
+
+
+def child_run(code: str, env: dict, *args: str) -> tuple:
+    """(result, seconds from start to CUDA ready) of a child process."""
+    t0 = time.time()
+    out = subprocess.run([sys.executable, "-c", code, *args], env=env,
+                         capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        raise RuntimeError(f"child failed (rc={out.returncode}): "
+                           f"{out.stderr[-2000:]}")
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    return res, res["t"]["cuda_ready"] - t0
+
+
+def allocation_plane_phase(torch, card: str) -> dict:
+    """Phase E: the node's allocation plane on the card(s), against a stub
+    apiserver (one Node) and a stub kubelet (Registration) this script
+    opens on 127.0.0.1 and a unix socket. Each step is gated: the driver
+    and runtime agents; the shared plugin's inventory (gpu0..gpuN-1, the
+    UUIDs torch sees), its first ListAndWatch and an Allocate whose card
+    a child process sees alone by UUID; the health engine over NVML, its
+    HBM warning raised by filling the card and cleared by freeing it, a
+    FAILing card advertised Unhealthy; the fence (the shared pool drops
+    the fenced cards, the isolated plugin serves them whole); a vGPU
+    profile (the isolated plugin re-registers as nvidia.com/vgpu, and
+    the allocator enforces the budget of an Allocate in two children);
+    the fence withdrawn; feature discovery's labels. Times in ms."""
+    import importlib.util
+
+    from tpu_operator_torch.api import labels as L
+    from tpu_operator_torch.cli import node_agents
+    from tpu_operator_torch.deviceplugin import plugin as dp
+    from tpu_operator_torch.featurediscovery import FeatureDiscovery
+    from tpu_operator_torch.isolation import fencing, vgpu
+    from tpu_operator_torch.metrics import health_engine as he
+    from tpu_operator_torch.runtime.kubeclient import InClusterClient
+    from tpu_operator_torch.validator import barrier, components
+    from tpu_operator_torch.validator import metrics as node_metrics
+
+    absent = [m for m in ("grpc", "google.protobuf", "yaml")
+              if importlib.util.find_spec(m) is None]
+    log(f"  {json.dumps({'absent': absent})}")
+    if absent:
+        raise RuntimeError(f"phase E needs {absent} on this machine")
+    n = torch.cuda.device_count()
+    ms = {}
+    children = {}
+    d = tempfile.mkdtemp(prefix="gpu-allocation-plane-")
+    fence_file = os.path.join(d, "fencing.json")
+    vgpu_file = os.path.join(d, "vgpu-config.json")
+    sockets = os.path.join(d, "device-plugins")
+    os.makedirs(sockets)
+    profiles = os.path.join(d, "vgpu-profiles.yaml")
+    with open(profiles, "w") as f:
+        f.write(VGPU_PROFILES_YAML)
+    node_name = "smoke-node"
+    api = StubApiserver(node_name, {L.WORKLOAD_CONFIG: "virtual"})
+    client = InClusterClient(api.url)
+    kubelet = StubKubelet(sockets)
+    shared = isolated = shared_rpc = isolated_rpc = engine_srv = None
+    stub_srv = None
+    stop = threading.Event()
+    held = None
+    try:
+        with environ(GPU_VALIDATION_DIR=os.path.join(d, "validations"),
+                     GPU_FENCING_FILE=fence_file, GPU_VGPU_FILE=vgpu_file,
+                     GPU_SLICE_FILE=os.path.join(d, "no-slices.json"),
+                     GPU_FAKE_CHIPS=None, GPU_HEALTH_ENGINE_INFO=None,
+                     GPU_TELEMETRY_WATCH=None, GPU_TELEMETRY_BIN=None,
+                     GPU_WORKLOAD_CONFIG=None, SHARING_REPLICAS=None,
+                     GPU_PLUGIN_CONFIG_DIR=None, GPU_DRIVER_VERSION=None,
+                     DEVICE_PATH_GLOB=None, GPU_CARD_MEMORY_MB=None):
+            # E1. the driver and runtime agents
+            t0 = time.perf_counter()
+            rc = node_agents.main(["gpu-driver-install", "verify"])
+            ms["driver_install_verify"] = (time.perf_counter() - t0) * 1e3
+            drv = barrier.read_status(".driver-ctr-ready") or {}
+            smi_driver = smi_query("driver_version")[0][0]
+            smi_cuda = smi_cuda_version()
+            log(f"  gpu-driver-install verify: rc={rc} {drv}; nvidia-smi "
+                f"driver {smi_driver}, CUDA {smi_cuda}")
+            if rc != 0 or drv.get("DRIVER_VERSION") != smi_driver or \
+                    drv.get("CUDA_DRIVER_VERSION") != str(smi_cuda):
+                raise RuntimeError(f"the driver agent's {drv} disagrees "
+                                   f"with nvidia-smi")
+            t0 = time.perf_counter()
+            rc = node_agents.main(["gpu-runtime-setup", "verify"])
+            ms["runtime_setup_verify"] = (time.perf_counter() - t0) * 1e3
+            env_file = barrier.validation_dir().parent / "gpu-env"
+            runtime_env = dict(ln.split("=", 1) for ln in
+                               env_file.read_text().splitlines())
+            nodes = runtime_env.get("GPU_DEVICES", "").split(",")
+            node_errors = [e for e in map(components.device_node_error,
+                                          nodes) if e]
+            log(f"  gpu-runtime-setup verify: rc={rc} {runtime_env}; "
+                f"errors opening the card nodes: {node_errors}")
+            if rc != 0 or len(nodes) != n or node_errors:
+                raise RuntimeError("the runtime agent's card nodes do not "
+                                   "open")
+            for name in barrier.KNOWN_STATUS_FILES:
+                if not barrier.is_ready(name):
+                    barrier.write_status(name, {"SMOKE": "1"})
+            rc = node_agents.main(["gpu-driver-manager", "preflight"])
+            left = [f for f in barrier.KNOWN_STATUS_FILES
+                    if barrier.is_ready(f)]
+            log(f"  gpu-driver-manager preflight: rc={rc}; of "
+                f"{len(barrier.KNOWN_STATUS_FILES)} known files, left "
+                f"{left}")
+            if rc != 0 or left:
+                raise RuntimeError(f"preflight left {left}")
+
+            # E2. the shared plugin
+            inventory = dp.card_inventory()
+            ids = [f"gpu{i}" for i in range(n)]
+            torch_uuids = {"GPU-" + str(torch.cuda.get_device_properties(i)
+                                        .uuid) for i in range(n)}
+            log(f"  NVML inventory: {inventory}")
+            if [c.id for c in inventory.cards] != ids or \
+                    {c.uuid for c in inventory.cards} != torch_uuids:
+                raise RuntimeError(f"the inventory {inventory.cards} is not "
+                                   f"torch's {sorted(torch_uuids)}")
+            t0 = time.perf_counter()
+            shared = dp.GpuDevicePlugin(socket_dir=sockets,
+                                        health_interval_s=3600)
+            shared.start()
+            shared_rpc = PluginClient(shared.socket_path)
+            listed = shared_rpc.next_list()
+            ms["shared_start_to_first_list"] = (time.perf_counter() - t0) * 1e3
+            shared.register_with_kubelet()
+            kubelet.wait_for(L.GPU_RESOURCE)
+            log(f"  shared plugin: first ListAndWatch {listed} in "
+                f"{ms['shared_start_to_first_list']!r} ms; kubelet "
+                f"registrations {kubelet.registrations}")
+            if listed != dict.fromkeys(ids, dp.HEALTHY):
+                raise RuntimeError(f"the shared plugin listed {listed}")
+            fence_ids = list(FENCE_FOUR_CARDS) if n >= 4 else ids
+            target = [c for c in ids if c not in fence_ids or n < 4][-1]
+            card_t = inventory.card(target)
+            envs, paths, ms["shared_allocate"] = shared_rpc.allocate([target])
+            log(f"  Allocate([{target}]) in {ms['shared_allocate']!r} ms: "
+                f"{paths} {envs}")
+            if envs.get("NVIDIA_VISIBLE_DEVICES") != card_t.uuid or \
+                    paths[0] != f"/dev/nvidia{card_t.minor}":
+                raise RuntimeError(f"Allocate named {envs} {paths}, not "
+                                   f"{card_t}")
+            child_env = dict(os.environ, PYTHONPATH=os.getcwd(), **envs)
+            child_env["CUDA_VISIBLE_DEVICES"] = envs["NVIDIA_VISIBLE_DEVICES"]
+            res, children["allocated_s"] = child_run(ALLOCATED_CHILD,
+                                                     child_env)
+            log(f"  child with CUDA_VISIBLE_DEVICES={card_t.uuid}: {res}; "
+                f"start to CUDA ready {children['allocated_s']!r} s")
+            if res["count"] != 1 or res["uuid"] != card_t.uuid or \
+                    not res["finite"]:
+                raise RuntimeError(f"the allocated child saw {res}")
+
+            # E3. the health engine over NVML
+            eng = he.HealthEngine()
+            engine_srv = he.serve(0, interval=3600, stop_event=stop,
+                                  engine=eng)
+            info = f"127.0.0.1:{engine_srv.server_address[1]}"
+            os.environ["GPU_HEALTH_ENGINE_INFO"] = info
+
+            def verdicts():
+                t0 = time.perf_counter()
+                eng.collect_once()
+                ms.setdefault("health_collect_once", []).append(
+                    (time.perf_counter() - t0) * 1e3)
+                code, body = http_get(f"http://{info}/v1/health")
+                return code, json.loads(body)
+
+            code, health = verdicts()
+            log(f"  /v1/health {code}: {health}")
+            if code != 200 or [c["status"] for c in health["chips"]] != \
+                    ["ok"] * n:
+                raise RuntimeError(f"the idle cards are not all ok: {health}")
+            own = next(c for c in inventory.cards if c.uuid == "GPU-" + str(
+                torch.cuda.get_device_properties(0).uuid))
+            torch.cuda.empty_cache()
+            held = []
+            for _ in range(4):
+                s = next(x for x in eng.samples()
+                         if x["chip_id"] == own.id)
+                used, total = s["hbm_used"], s["hbm_total"]
+                if used / total >= he.HBM_WARN_FRACTION:
+                    break
+                need = int(HBM_FILL_TARGET * total) - used
+                held.append(torch.empty(need, dtype=torch.uint8,
+                                        device="cuda:0"))
+                torch.cuda.synchronize()
+                code, health = verdicts()
+            full = next(c for c in health["chips"] if c["chip_id"] == own.id)
+            log(f"  filled {own.id} ({sum(t.numel() for t in held)} bytes "
+                f"held): NVML used {used}/{total} = {used / total!r}; "
+                f"/v1/health {code}: {full}")
+            shared.refresh_devices()
+            after_fill = {d.ID: d.health for d in shared.devices()}
+            if full["status"] != "warn" or not any(
+                    "HBM" in r for r in full["reasons"]) or code != 200:
+                raise RuntimeError(f"no HBM warning at {used / total}: {full}")
+            if after_fill[own.id] != dp.HEALTHY:
+                raise RuntimeError(f"a warn verdict unhealthed {own.id}")
+            held = None
+            torch.cuda.empty_cache()
+            code, health = verdicts()
+            freed = next(c for c in health["chips"] if c["chip_id"] == own.id)
+            log(f"  freed: /v1/health {code}: {freed}; plugin kept "
+                f"{after_fill}")
+            if freed["status"] != "ok":
+                raise RuntimeError(f"the warning outlived the memory: {freed}")
+            stub_srv = stub_health_engine({"gpu0": "fail"})
+            os.environ["GPU_HEALTH_ENGINE_INFO"] = \
+                f"127.0.0.1:{stub_srv.server_address[1]}"
+            shared.refresh_devices()
+            failed = shared_rpc.next_list()
+            os.environ["GPU_HEALTH_ENGINE_INFO"] = info
+            shared.refresh_devices()
+            recovered = shared_rpc.next_list()
+            log(f"  a stub engine answering 503 with gpu0 fail: "
+                f"ListAndWatch {failed}; back on the engine: {recovered}")
+            if failed.get("gpu0") != dp.UNHEALTHY or \
+                    recovered != dict.fromkeys(ids, dp.HEALTHY):
+                raise RuntimeError("a FAILing card was not advertised "
+                                   "Unhealthy and back")
+
+            # E4. the fence
+            fence_cfg = ",".join(FENCE_FOUR_CARDS) if n >= 4 else "all"
+            client.patch("v1", "Node", node_name, {"metadata": {
+                "labels": {L.FENCING_CONFIG: fence_cfg,
+                           L.VGPU_CONFIG: "vgpu-2"}}})
+            agent = fencing.FencingAgent(client, node_name,
+                                         fencing_file=fence_file)
+            t0 = time.perf_counter()
+            state = agent.apply_once()
+            ms["fencing_apply_once"] = (time.perf_counter() - t0) * 1e3
+            fenced = fencing.fenced_chips()
+            shared.refresh_devices()
+            pool = shared_rpc.next_list()
+            log(f"  FencingAgent.apply_once: {state} in "
+                f"{ms['fencing_apply_once']!r} ms, fenced {fenced}, node "
+                f"label {api.labels().get(L.FENCING_STATE)}; shared pool "
+                f"{pool}")
+            if state != "success" or fenced != fence_ids or \
+                    api.labels().get(L.FENCING_STATE) != "success" or \
+                    pool != {c: dp.HEALTHY for c in ids
+                             if c not in fenced}:
+                raise RuntimeError("the fence did not move the cards out of "
+                                   "the shared pool")
+            if n >= 4:
+                envs, paths, _ = shared_rpc.allocate([target])
+                if envs["NVIDIA_VISIBLE_DEVICES"] != card_t.uuid:
+                    raise RuntimeError(f"the fenced pool reallocated {envs}")
+            isolated = dp.IsolatedGpuDevicePlugin(socket_dir=sockets,
+                                                  health_interval_s=0.5)
+            threading.Thread(target=isolated.serve_forever,
+                             kwargs={"poll_s": 0.2}, daemon=True).start()
+            kubelet.wait_for(L.GPU_ISOLATED_RESOURCE)
+            isolated_rpc = PluginClient(isolated.socket_path)
+            whole = isolated_rpc.next_list()
+            fence_info = components.validate_fencing()
+            log(f"  isolated plugin as {L.GPU_ISOLATED_RESOURCE}: {whole}; "
+                f"fencing-ready {fence_info}")
+            if whole != dict.fromkeys(fenced, dp.HEALTHY) or \
+                    fence_info["FENCED"] != ",".join(fenced):
+                raise RuntimeError("the isolated pool is not the fence")
+
+            # E5. vGPUs under the allocator's budget
+            mgr = vgpu.VGPUDeviceManager(client, node_name, profiles,
+                                         vgpu_file=vgpu_file)
+            t0 = time.perf_counter()
+            state = mgr.apply_once()
+            ms["vgpu_apply_once"] = (time.perf_counter() - t0) * 1e3
+            kubelet.wait_for(L.VGPU_RESOURCE)
+            units = isolated_rpc.next_list()
+            log(f"  VGPUDeviceManager.apply_once: {state} in "
+                f"{ms['vgpu_apply_once']!r} ms, node label "
+                f"{api.labels().get(L.VGPU_CONFIG_STATE)}; isolated plugin "
+                f"re-registered: {kubelet.registrations}; lists {units}")
+            want_units = [f"{c}-vgpu{j}" for c in fenced for j in range(2)]
+            if state != "success" or sorted(units) != sorted(want_units):
+                raise RuntimeError(f"the vGPU inventory is {units}")
+            unit = want_units[0]
+            card_v = inventory.card(fenced[0])
+            envs, paths, ms["vgpu_allocate"] = isolated_rpc.allocate([unit])
+            log(f"  Allocate([{unit}]) in {ms['vgpu_allocate']!r} ms: "
+                f"{paths} {envs}")
+            if envs.get("PYTORCH_CUDA_ALLOC_CONF") != \
+                    "per_process_memory_fraction:0.5000" or \
+                    envs.get("NVIDIA_VISIBLE_DEVICES") != card_v.uuid:
+                raise RuntimeError(f"the vGPU's contract is {envs}")
+            child_env = dict(os.environ, PYTHONPATH=os.getcwd(), **envs)
+            child_env["CUDA_VISIBLE_DEVICES"] = envs["NVIDIA_VISIBLE_DEVICES"]
+            with concurrent.futures.ThreadPoolExecutor(2) as pool_:
+                budget = list(pool_.map(
+                    lambda s: child_run(BUDGET_CHILD, child_env, str(s)),
+                    BUDGET_SHARES))
+            for (res, ready_s), share in zip(budget, BUDGET_SHARES):
+                children[f"budget_{share}_s"] = ready_s
+                log(f"  budget child ({share} of the budget): {res}; start "
+                    f"to CUDA ready {ready_s!r} s")
+            (fits, _), (over, _) = budget
+            log(f"  budget: fraction 0.5 of torch's total {fits['torch_total']}"
+                f" = {fits['budget_bytes']} bytes "
+                f"({fits['budget_bytes'] / 2**20!r} MiB); the inventory's "
+                f"GPU_MEM_LIMIT_MB {envs.get('GPU_MEM_LIMIT_MB')}; NVML's "
+                f"total / 2 = {card_v.memory_total_bytes / 2 / 2**20!r} MiB")
+            if not fits["allocated"] or over["allocated"] or \
+                    "allowed" not in over.get("oom", "") or \
+                    fits["uuid"] != card_v.uuid or fits["count"] != 1:
+                raise RuntimeError("the allocator did not enforce the vGPU's "
+                                   "budget")
+            with environ(GPU_WORKLOAD_CONFIG="virtual"):
+                vgpu_info = components.validate_vgpu()
+            m = node_metrics.NodeMetrics("smoke")
+            m.collect_once()
+            got = prom_series(m.render().decode())
+            gauges = {c: got.get(("gpu_operator_node_component_ready",
+                                  (("component", c), ("node", "smoke"))))
+                      for c in node_metrics.ISOLATION_COMPONENT_FILES}
+            log(f"  vgpu-ready {vgpu_info}; isolated-plane gauges {gauges}")
+            if gauges != {"fencing": 1.0, "vgpu": 1.0}:
+                raise RuntimeError(f"the exporter's isolated gauges {gauges}")
+            agent.cleanup()
+            shared.refresh_devices()
+            back = shared_rpc.next_list()
+            gone = [p for p in (fence_file, vgpu_file) if os.path.exists(p)]
+            log(f"  FencingAgent.cleanup: files left {gone}; shared pool "
+                f"{back}")
+            if gone or back != dict.fromkeys(ids, dp.HEALTHY):
+                raise RuntimeError("the withdrawn fence did not return the "
+                                   "cards")
+
+            # E6. feature discovery
+            fd = FeatureDiscovery(client, node_name)
+            t0 = time.perf_counter()
+            delta = fd.apply_once()
+            ms["feature_discovery_apply_once"] = \
+                (time.perf_counter() - t0) * 1e3
+            again = fd.apply_once()
+            labels = api.labels()
+            log(f"  FeatureDiscovery.apply_once in "
+                f"{ms['feature_discovery_apply_once']!r} ms: {delta}; "
+                f"again: {again}")
+            want = {L.GPU_PRODUCT: own.name.replace(" ", "-"),
+                    L.GPU_MEMORY_GB: "80", L.DRIVER_VERSION: smi_driver}
+            if "H100 80GB HBM3" in own.name:  # SXM
+                want[L.GPU_NVLINK_GBPS] = "450"
+            if {k: labels.get(k) for k in want} != want or again:
+                raise RuntimeError(f"feature labels {delta}, want {want}")
+            meta = client.get("v1", "Node", node_name, metadata_only=True)
+            if meta.get("kind") != "PartialObjectMetadata" or \
+                    meta["metadata"]["labels"] != labels:
+                raise RuntimeError(f"a metadata-only GET gave {meta}")
+            metadata_gets = sum(1 for r in api.requests
+                                if "PartialObjectMetadata" in r[1])
+            log(f"  stub apiserver: {len(api.requests)} requests "
+                f"({metadata_gets} metadata-only GETs)")
+    finally:
+        held = None
+        for rpc in (shared_rpc, isolated_rpc):
+            if rpc is not None:
+                rpc.close()
+        for plugin in (shared, isolated):
+            if plugin is not None:
+                plugin.stop()
+        stop.set()
+        for srv in (engine_srv, stub_srv):
+            if srv is not None:
+                srv.shutdown()
+                srv.server_close()
+        kubelet.stop()
+        api.stop()
+        shutil.rmtree(d, ignore_errors=True)
+    out = {"card": card, "ms": ms, "children_s": children,
+           "absent": absent, "driver": drv, "budget": budget[0][0]}
+    return out
+
+
+def stub_health_engine(statuses: dict):
+    """A health engine answering /v1/health with 503 and ``statuses``."""
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    body = json.dumps({"status": "fail", "reasons": [], "chips": [
+        {"chip_id": c, "status": s, "reasons": []}
+        for c, s in statuses.items()]}).encode()
+
+    class Handler(BaseHTTPRequestHandler):
+        def do_GET(self):
+            self.send_response(503)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def log_message(self, *args):
+            pass
+
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    return srv
+
+
 def main() -> int:
     import torch
 
@@ -1360,6 +2007,22 @@ def main() -> int:
     log(json.dumps({"node_exporter": exporter, "pod_payload": pod,
                     "telemetry": telemetry, "entry": entry_figures,
                     "allreduce_step": allreduce}))
+
+    # E: the node's allocation plane; no kernel of this repo lies on it
+    # (it reads NVML and never opens a context but in its children), and
+    # the counts read after it say so
+    hbm_probe.triad_.launches = 0
+    fa.flash_attention_blocks.launches = 0
+    log("# phase E: the node's allocation plane (device plugins, fencing, "
+        "vGPUs, health engine, feature discovery, node agents)")
+    torch.cuda.empty_cache()
+    plane = allocation_plane_phase(torch, card)
+    plane["launches"] = {"triad": hbm_probe.triad_.launches,
+                         "flash_attention": fa.flash_attention_blocks.launches}
+    log(f"  kernel launches in phase E: {plane['launches']}")
+    if any(plane["launches"].values()):
+        raise RuntimeError("the allocation plane launched a kernel")
+    log(json.dumps({"allocation_plane": plane}))
 
     # 14. the kernel table
     kernels = [{

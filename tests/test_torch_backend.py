@@ -15,6 +15,10 @@ from tpu_operator_torch.workloads import backend, hardware
     ("NVIDIA H100 80GB HBM3", "h100-sxm"),
     ("NVIDIA H100 SXM5 80GB", "h100-sxm"),
     ("NVIDIA H100 PCIe", "h100-pcie"),
+    ("NVIDIA-H100-80GB-HBM3", "h100-sxm"),
+    ("nvidia-h100-80gb", "h100-sxm"),
+    ("nvidia-h100-mega-80gb", "h100-sxm"),
+    ("NVIDIA-H100-PCIe", "h100-pcie"),
     ("NVIDIA A100-SXM4-80GB", None),
     ("cpu", None),
     ("", None),

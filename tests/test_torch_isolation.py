@@ -1,7 +1,8 @@
 """The port stands alone: every module of tpu_operator_torch, and
-chip_smoke.py, imports with JAX and the JAX package blocked, and its
-default device is the card, which this host does not have: the entry
-points refuse to run rather than fall back to the CPU."""
+chip_smoke.py, imports with JAX and the JAX package blocked (and none
+but the generated v1beta1 messages pulls in grpc, protobuf or yaml),
+and its default device is the card, which this host does not have: the
+entry points refuse to run rather than fall back to the CPU."""
 
 import os
 import subprocess
@@ -22,7 +23,13 @@ PROBE = textwrap.dedent("""
     mods = ["tpu_operator_torch"] + [
         m.name for m in pkgutil.walk_packages(tpu_operator_torch.__path__,
                                               "tpu_operator_torch.")]
+    # the generated v1beta1 messages import protobuf: last, so that what
+    # the other modules pull in at import is seen apart
+    mods.sort(key=lambda m: m.endswith(".api_pb2"))
     for m in mods:
+        if m.endswith(".api_pb2"):
+            top_level = [t for t in ("grpc", "google.protobuf", "yaml")
+                         if t in sys.modules]
         importlib.import_module(m)
     importlib.import_module("chip_smoke")
 
@@ -51,7 +58,8 @@ PROBE = textwrap.dedent("""
                     if m.split(".")[0] in ("jax", "jaxlib", "tpu_operator")
                     and sys.modules[m] is not None)
     print(json.dumps({"modules": mods, "default": default,
-                      "entries": entries, "leaked": leaked}))
+                      "entries": entries, "leaked": leaked,
+                      "top_level": top_level}))
 """)
 
 
@@ -94,9 +102,20 @@ def test_port_imports_without_jax_or_the_jax_package():
         "tpu_operator_torch.metrics.gpu_exporter",
         "tpu_operator_torch.entry",
         "tpu_operator_torch.workloads.elastic",
+        "tpu_operator_torch.runtime.objects",
+        "tpu_operator_torch.deviceplugin.api_pb2",
+        "tpu_operator_torch.deviceplugin.plugin",
+        "tpu_operator_torch.isolation.fencing",
+        "tpu_operator_torch.isolation.vgpu",
+        "tpu_operator_torch.metrics.health_engine",
+        "tpu_operator_torch.featurediscovery.agent",
+        "tpu_operator_torch.cli.node_agents",
     }
     assert expected <= set(res["modules"])
     assert res["leaked"] == []
+    # grpc, protobuf and yaml are imported where they are used, never at
+    # a module's top (the plugin's core and the agents run without them)
+    assert res["top_level"] == []
     assert res["default"].startswith("CUDA is not available")
     assert len(res["entries"]) == 7
     for entry, refusal in res["entries"].items():

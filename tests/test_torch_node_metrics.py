@@ -33,8 +33,9 @@ GAUGE_RENAMES = {
     "tpu_operator_node_collective_bus_gbps":
         "gpu_operator_node_collective_bus_gbps",
 }
-COMPONENT_RENAMES = {"jax": "cuda", "ici": "nvlink"}
-STATUS_RENAMES = {"jax-ready": "cuda-ready", "ici-ready": "nvlink-ready"}
+COMPONENT_RENAMES = {"jax": "cuda", "ici": "nvlink", "vtpu": "vgpu"}
+STATUS_RENAMES = {"jax-ready": "cuda-ready", "ici-ready": "nvlink-ready",
+                  "vtpu-ready": "vgpu-ready"}
 KEY_RENAMES = {"MXU_UTILIZATION": "TENSOR_CORE_UTILIZATION"}
 
 
@@ -43,6 +44,7 @@ def valdirs(tmp_path, monkeypatch):
     monkeypatch.setenv("TPU_VALIDATION_DIR", str(tmp_path / "jax"))
     monkeypatch.setenv("GPU_VALIDATION_DIR", str(tmp_path / "port"))
     monkeypatch.setenv("TPU_FENCING_FILE", str(tmp_path / "no-fence"))
+    monkeypatch.setenv("GPU_FENCING_FILE", str(tmp_path / "no-fence-port"))
     monkeypatch.setenv("TPU_FAKE_CHIPS", "4")
     monkeypatch.setenv("GPU_FAKE_CHIPS", "4")
     return tmp_path
@@ -237,3 +239,25 @@ def test_set_or_remove_on_a_series_never_published():
     metrics.set_or_remove(m.hbm_fraction, 0.5, (NODE,))
     assert value(series(m.render().decode()),
                  "gpu_operator_node_hbm_fraction_of_peak") == 0.5
+
+
+@pytest.mark.parametrize("plane", ["fence-published", "fencing-proved",
+                                   "absent"])
+def test_isolated_plane_gauges(valdirs, plane):
+    """The fencing and vgpu readiness series are served only where the
+    isolated plane runs: a fence published, or its proof passed."""
+    import json
+
+    if plane == "fence-published":
+        for name in ("no-fence", "no-fence-port"):
+            (valdirs / name).write_text(json.dumps({"fenced": ["x"]}))
+        write_both("vtpu-ready", {"PROFILE": "v"})
+    elif plane == "fencing-proved":
+        write_both("fencing-ready", {"FENCED": "x"})
+    got = compare(*both())
+    ready = {c: value(got, "gpu_operator_node_component_ready",
+                      component=c)
+             for c in metrics.ISOLATION_COMPONENT_FILES}
+    assert ready == {"fence-published": {"fencing": 0.0, "vgpu": 1.0},
+                     "fencing-proved": {"fencing": 1.0, "vgpu": 0.0},
+                     "absent": {"fencing": None, "vgpu": None}}[plane]

@@ -313,6 +313,9 @@ def test_client_from_env_reads_the_service_account(tmp_path, monkeypatch):
     (["-c", "plugin"], ("plugin", False)),
     (["-c", "cuda", "--pod-mode"], ("cuda", True)),
     (["-c", "metrics"], ("metrics", False)),
+    (["-c", "fencing"], ("fencing", False)),
+    (["-c", "vgpu"], ("vgpu", False)),
+    (["-c", "sleep"], ("sleep", False)),
 ])
 def test_cli_parses_the_new_components(argv, want):
     args = cli.build_parser().parse_args(argv)
@@ -369,3 +372,24 @@ def test_cli_metrics_serves_on_metrics_port(valdirs, monkeypatch):
     monkeypatch.delenv("METRICS_PORT", raising=False)
     assert cli.main(["-c", "metrics"]) == 130
     assert served == [(9401, "node-0")]
+
+
+@pytest.mark.parametrize("comp", ["fencing", "vgpu"])
+def test_cli_dispatches_the_isolated_proofs(valdirs, monkeypatch, comp):
+    from tpu_operator_torch.validator import components
+
+    calls = []
+    monkeypatch.setattr(components, f"validate_{comp}",
+                        lambda: calls.append(comp) or {"OK": "1"})
+    assert cli.main(["-c", comp]) == 0
+    assert calls == [comp]
+
+
+def test_cli_sleep_parks(monkeypatch):
+    from tpu_operator_torch.validator import components
+
+    def stop(_):
+        raise KeyboardInterrupt
+
+    monkeypatch.setattr(components.time, "sleep", stop)
+    assert cli.main(["-c", "sleep"]) == 130

@@ -294,4 +294,5 @@ def test_barrier_defaults_are_the_ports_own(monkeypatch):
     assert str(barrier.validation_dir()) == "/run/nvidia/validations"
     assert set(barrier.KNOWN_STATUS_FILES) == {
         "driver-ready", "runtime-ready", "cuda-ready", "plugin-ready",
-        "hbm-ready", "nvlink-ready", "dcn-ready"}
+        "hbm-ready", "nvlink-ready", "dcn-ready", "topology-ready",
+        "fencing-ready", "vgpu-ready", ".driver-ctr-ready"}

@@ -1,9 +1,94 @@
-"""Well-known resource names of the port.
+"""Well-known labels, annotations, resources and paths of the port.
 
-Counterpart of ``tpu_operator/api/labels.py``, which names the TPU
-resource ``google.com/tpu`` (``TPU_RESOURCE``). The NVIDIA device plugin
-advertises cards as ``nvidia.com/gpu``. The node labels, annotations and
-paths of the reference are ported with the control-plane surfaces.
+Counterpart of ``tpu_operator/api/labels.py``. One naming rule maps the
+reference's names onto the port's (ROADMAP.md §C holds the table):
+
+- label domain ``tpu.graft.dev/<suffix>`` -> ``gpu.graft.dev/<suffix>``;
+  inside a suffix ``tpu.`` -> ``gpu.``, ``vtpu`` -> ``vgpu``,
+  ``ici-gbps`` -> ``nvlink-gbps``, ``tpu.accelerator`` -> ``gpu.product``,
+  ``libtpu.version`` -> ``driver.version``;
+- operand state names ``tpu-`` -> ``gpu-``, ``libtpu-driver`` ->
+  ``gpu-driver``, ``vtpu-device-manager`` -> ``vgpu-device-manager``;
+- resources ``google.com/tpu`` -> ``nvidia.com/gpu``,
+  ``google.com/tpu-isolated`` -> ``nvidia.com/gpu-isolated``,
+  ``google.com/vtpu`` -> ``nvidia.com/vgpu``;
+- paths ``/run/tpu/*`` -> ``/run/nvidia/*``.
+
+Only what the ported modules read is here. The GKE TPU node labels and
+the topology, upgrade, placement, quota and federation constants wait
+for the modules that read them.
 """
 
+# --- GKE's node label for an attached accelerator (a discovery hint) -------
+GKE_ACCELERATOR = "cloud.google.com/gke-accelerator"  # e.g. nvidia-h100-80gb
+
+# --- labels stamped by the operator and its node agents --------------------
+DOMAIN = "gpu.graft.dev"
+DEPLOY_PREFIX = f"{DOMAIN}/deploy."               # per-operand deploy label
+WORKLOAD_CONFIG = f"{DOMAIN}/workload.config"     # container | isolated | virtual
+FENCING_CONFIG = f"{DOMAIN}/fencing.config"       # all | none | card list
+FENCING_STATE = f"{DOMAIN}/fencing.state"         # success | failed
+VGPU_CONFIG = f"{DOMAIN}/vgpu.config"             # vGPU profile name
+VGPU_CONFIG_STATE = f"{DOMAIN}/vgpu.config.state"  # pending|success|failed
+DEVICE_PLUGIN_CONFIG = f"{DOMAIN}/device-plugin.config"  # per-node plugin config
+
+# --- feature-discovery labels (stamped by the on-node agent only) ----------
+GPU_PRODUCT = f"{DOMAIN}/gpu.product"             # e.g. NVIDIA-H100-80GB-HBM3
+GPU_MEMORY_GB = f"{DOMAIN}/gpu.memory-gb"         # memory per card
+GPU_NVLINK_GBPS = f"{DOMAIN}/gpu.nvlink-gbps"     # one-way link rate per card
+DRIVER_VERSION = f"{DOMAIN}/driver.version"       # NVML's driver version
+FEATURE_LABELS = (GPU_PRODUCT, GPU_MEMORY_GB, GPU_NVLINK_GBPS, DRIVER_VERSION)
+
+# --- annotations -----------------------------------------------------------
+# the node health engine's digest: compact JSON {"v": 1, "status",
+# "grades": {chip_id: ok|warn|fail}, "duty_pct", "hbm_free_frac",
+# "temp_max_c", "gen", "seq"}
+HEALTH_DIGEST = f"{DOMAIN}/health-digest"
+
+# --- extended resources ----------------------------------------------------
 GPU_RESOURCE = "nvidia.com/gpu"
+GPU_ISOLATED_RESOURCE = "nvidia.com/gpu-isolated"  # whole fenced cards
+VGPU_RESOURCE = "nvidia.com/vgpu"                  # fractional vGPUs
+
+# --- barrier protocol ------------------------------------------------------
+DEFAULT_VALIDATION_DIR = "/run/nvidia/validations"
+
+# deploy-label sets per workload config: container nodes run the shared
+# plugin and telemetry; isolated nodes trade them for the fence and the
+# isolated plugin (whole fenced cards); virtual nodes add the vGPU
+# manager (fractions of fenced cards)
+CONTAINER_WORKLOAD_STATES = (
+    "gpu-driver",
+    "gpu-runtime",
+    "operator-validation",
+    "gpu-device-plugin",
+    "gpu-health",
+    "metrics-exporter",
+    "feature-discovery",
+    "node-status-exporter",
+    "topology-manager",
+)
+ISOLATED_WORKLOAD_STATES = (
+    "gpu-driver",
+    "chip-fencing",
+    "isolated-validation",
+    "isolated-device-plugin",
+    "node-status-exporter",
+)
+VIRTUAL_WORKLOAD_STATES = (
+    "gpu-driver",
+    "chip-fencing",
+    "vgpu-device-manager",
+    "isolated-validation",
+    "isolated-device-plugin",
+    "node-status-exporter",
+)
+WORKLOAD_STATE_SETS = {
+    "container": CONTAINER_WORKLOAD_STATES,
+    "isolated": ISOLATED_WORKLOAD_STATES,
+    "virtual": VIRTUAL_WORKLOAD_STATES,
+}
+
+
+def deploy_label(state: str) -> str:
+    return DEPLOY_PREFIX + state

@@ -1,21 +1,22 @@
 """gpu-validator entrypoint: the per-node validation chain on CUDA.
 
 Counterpart of ``tpu_operator/cli/validator.py``. Usage:
-    python -m tpu_operator_torch.cli.validator -c driver|runtime|cuda|hbm|nvlink|dcn|plugin|metrics
+    python -m tpu_operator_torch.cli.validator -c driver|runtime|cuda|hbm|nvlink|dcn|plugin|fencing|vgpu|metrics|sleep
     python -m tpu_operator_torch.cli.validator -c cuda --pod-mode
     python -m tpu_operator_torch.cli.validator wait <status-file>
     python -m tpu_operator_torch.cli.validator cleanup
 
 ``plugin`` and ``cuda --pod-mode`` spawn a workload pod through the
 apiserver (the pod's service account); ``metrics`` serves the node's
-validation status on METRICS_PORT (9401) until stopped.
+validation status on METRICS_PORT (9401) until stopped; ``sleep`` parks
+(the validator DaemonSet's main container).
 
 Flags mirror to env vars (WITH_WAIT, NODE_NAME, OPERATOR_NAMESPACE,
 VALIDATOR_IMAGE, METRICS_PORT, MATMUL_SIZE, HBM_THRESHOLD, HBM_SIZE_MB,
 NVLINK_THRESHOLD, NVLINK_SIZE_MB, NVLINK_FULL_SUITE, GPU_NUM_NODES,
 MASTER_ADDR, MASTER_PORT, GROUP_RANK, DCN_TIMEOUT_S, DCN_BANDWIDTH_PROBE,
 DCN_PROBE_FAKE_SLICES, DCN_PROBE_SIZE_MB, DCN_THRESHOLD,
-GPU_VALIDATION_DIR). Exit codes: 0 proof passed, 1 proof failed, 2 no
+GPU_VALIDATION_DIR, GPU_FENCING_FILE, GPU_VGPU_FILE, GPU_WORKLOAD_CONFIG). Exit codes: 0 proof passed, 1 proof failed, 2 no
 component given.
 """
 
@@ -30,9 +31,9 @@ import time
 from ..validator import barrier, components
 
 # each runs components.validate_<name>, but plugin and metrics, which
-# reach the apiserver or serve the barrier files
+# reach the apiserver or serve the barrier files, and sleep
 _COMPONENTS = ("driver", "runtime", "cuda", "hbm", "nvlink", "dcn", "plugin",
-               "metrics")
+               "fencing", "vgpu", "metrics", "sleep")
 METRICS_PORT = 9401
 
 
@@ -106,9 +107,11 @@ def main(argv=None) -> int:
         build_parser().print_help()
         return 2
 
-    if comp == "metrics":
+    if comp in ("metrics", "sleep"):
         try:
-            _serve_metrics(log)
+            if comp == "metrics":
+                _serve_metrics(log)
+            components.component_sleep()
         except KeyboardInterrupt:
             return 130
     while True:

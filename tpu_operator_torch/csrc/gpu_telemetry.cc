@@ -29,6 +29,17 @@
 // (NVML not there yet, no card) prints [] and keeps running, and the
 // next tick tries NVML again.
 //
+// --inventory prints the host's cards and driver once, as one object:
+//   {"driver_version": "580.x",
+//    "cards": [{"chip_id": "gpu0", "index": 0, "uuid": "GPU-...",
+//               "minor": 4, "name": "NVIDIA H100 80GB HBM3",
+//               "memory_total_bytes": N}, ...]}
+// The device plugin names a card gpu<index> and matches it by UUID; the
+// minor number names its /dev/nvidia<minor> node (index 0 may well be
+// /dev/nvidia4). A query NVML refuses gives null (uuid, minor, name) and
+// a line on stderr; exit code 1 when NVML cannot be opened or lacks the
+// inventory's entry points.
+//
 // Build: tpu_operator_torch.kernels.build.build_host("gpu_telemetry")
 // (the host C++ compiler, -ldl; into build/kernels/ at first use).
 
@@ -67,6 +78,11 @@ struct Nvml {
   nvmlReturn_t (*utilization)(nvmlDevice_t, nvmlUtilization_t*) = nullptr;
   nvmlReturn_t (*temperature)(nvmlDevice_t, int, unsigned int*) = nullptr;
   const char* (*error_string)(nvmlReturn_t) = nullptr;  // optional
+  // the inventory's entry points, resolved when present
+  nvmlReturn_t (*driver_version)(char*, unsigned int) = nullptr;
+  nvmlReturn_t (*uuid)(nvmlDevice_t, char*, unsigned int) = nullptr;
+  nvmlReturn_t (*minor)(nvmlDevice_t, unsigned int*) = nullptr;
+  nvmlReturn_t (*name)(nvmlDevice_t, char*, unsigned int) = nullptr;
 };
 
 template <typename F>
@@ -87,6 +103,10 @@ bool Open(Nvml* n, const std::string& path) {
       return false;
     }
     Sym(n->lib, "nvmlErrorString", &n->error_string);
+    Sym(n->lib, "nvmlSystemGetDriverVersion", &n->driver_version);
+    Sym(n->lib, "nvmlDeviceGetUUID", &n->uuid);
+    Sym(n->lib, "nvmlDeviceGetMinorNumber", &n->minor);
+    Sym(n->lib, "nvmlDeviceGetName", &n->name);
     if (!Sym(n->lib, "nvmlInit_v2", &n->init) ||
         !Sym(n->lib, "nvmlDeviceGetCount_v2", &n->count) ||
         !Sym(n->lib, "nvmlDeviceGetHandleByIndex_v2", &n->handle) ||
@@ -174,17 +194,95 @@ unsigned int ScanOnce(Nvml* n, const std::string& path) {
   return seen;
 }
 
+// a JSON string literal of s, or null when the query was refused
+void PrintString(const char* s, bool known) {
+  if (!known) {
+    printf("null");
+    return;
+  }
+  putchar('"');
+  for (const char* c = s; *c; ++c) {
+    if (*c == '"' || *c == '\\') putchar('\\');
+    if (static_cast<unsigned char>(*c) >= 0x20) putchar(*c);
+  }
+  putchar('"');
+}
+
+// the --inventory object; returns the process's exit code
+int Inventory(Nvml* n, const std::string& path) {
+  if (!Open(n, path)) return 1;
+  if (!n->driver_version || !n->uuid || !n->minor || !n->name) {
+    fprintf(stderr, "gpu-telemetry: %s lacks an inventory entry point\n",
+            path.c_str());
+    return 1;
+  }
+  unsigned int cards = 0;
+  nvmlReturn_t rc = n->count(&cards);
+  if (rc != NVML_SUCCESS) {
+    fprintf(stderr, "gpu-telemetry: nvmlDeviceGetCount_v2: %s (%d)\n",
+            n->error_string ? n->error_string(rc) : "error", rc);
+    return 1;
+  }
+  char buf[256] = {0};
+  rc = n->driver_version(buf, sizeof(buf));
+  if (rc != NVML_SUCCESS) {
+    fprintf(stderr, "gpu-telemetry: nvmlSystemGetDriverVersion: %s (%d)\n",
+            n->error_string ? n->error_string(rc) : "error", rc);
+  }
+  printf("{\"driver_version\": ");
+  PrintString(buf, rc == NVML_SUCCESS);
+  printf(", \"cards\": [");
+  unsigned int seen = 0;
+  for (unsigned int i = 0; i < cards; ++i) {
+    nvmlDevice_t dev = nullptr;
+    if ((rc = n->handle(i, &dev)) != NVML_SUCCESS) {
+      Refused(*n, i, "nvmlDeviceGetHandleByIndex_v2", rc);
+      continue;
+    }
+    if (seen++ > 0) printf(", ");
+    printf("{\"chip_id\": \"gpu%u\", \"index\": %u, \"uuid\": ", i, i);
+    char text[256] = {0};
+    rc = n->uuid(dev, text, sizeof(text));
+    if (rc != NVML_SUCCESS) Refused(*n, i, "nvmlDeviceGetUUID", rc);
+    PrintString(text, rc == NVML_SUCCESS);
+    unsigned int minor = 0;
+    rc = n->minor(dev, &minor);
+    if (rc != NVML_SUCCESS) {
+      Refused(*n, i, "nvmlDeviceGetMinorNumber", rc);
+      printf(", \"minor\": null");
+    } else {
+      printf(", \"minor\": %u", minor);
+    }
+    printf(", \"name\": ");
+    text[0] = 0;
+    rc = n->name(dev, text, sizeof(text));
+    if (rc != NVML_SUCCESS) Refused(*n, i, "nvmlDeviceGetName", rc);
+    PrintString(text, rc == NVML_SUCCESS);
+    nvmlMemory_t mem = {0, 0, 0};
+    if ((rc = n->memory(dev, &mem)) != NVML_SUCCESS) {
+      Refused(*n, i, "nvmlDeviceGetMemoryInfo", rc);
+    }
+    printf(", \"memory_total_bytes\": %llu}", mem.total);
+  }
+  printf("]}\n");
+  fflush(stdout);
+  return 0;
+}
+
 int main(int argc, char** argv) {
   std::string path = "libnvidia-ml.so.1";
   if (const char* env = getenv("GPU_TELEMETRY_NVML")) path = env;
   long watch_s = 0;
+  bool inventory = false;
   for (int i = 1; i < argc; ++i) {
+    if (strcmp(argv[i], "--inventory") == 0) inventory = true;
     if (strcmp(argv[i], "--nvml") == 0 && i + 1 < argc) path = argv[++i];
     if (strcmp(argv[i], "--watch") == 0 && i + 1 < argc) {
       watch_s = strtol(argv[++i], nullptr, 10);
     }
   }
   Nvml nvml;
+  if (inventory) return Inventory(&nvml, path);
   if (watch_s <= 0) return ScanOnce(&nvml, path) == 0 ? 1 : 0;
   // engine mode: scan on a fixed cadence; the supervisor owns the
   // process's lifetime

@@ -2,7 +2,8 @@
 
 Counterpart of the parts of ``tpu_operator/runtime/kubeclient.py`` (an
 HTTPS client over ``requests``, every verb, watches and retries) that the
-pod proofs reach: get, create and delete a pod, and get a node. It runs
+pod proofs and the node agents reach: get, create and delete a pod; get
+a node (whole, or its metadata alone) and merge-patch it. It runs
 inside a pod on the service account's token and CA and the
 ``KUBERNETES_SERVICE_HOST``/``_PORT`` contract, over ``urllib``.
 
@@ -43,10 +44,15 @@ class NotFoundError(ApiError):
 
 
 class InClusterClient:
-    """``get``/``get_or_none``/``create``/``delete`` of pods, ``get`` of
-    nodes. ``server`` is the apiserver's base URL; the bearer token is
-    read from ``token_file`` on every request (bound service-account
+    """``get``/``get_or_none``/``create``/``delete`` of pods, ``get`` and
+    ``patch`` of nodes. ``server`` is the apiserver's base URL; the bearer
+    token is read from ``token_file`` on every request (bound service-account
     tokens rotate), and ``ca_file`` verifies an https server."""
+
+    # PartialObjectMetadata negotiation: the apiserver serialises only the
+    # metadata, sparing a poller that reads one label the full Node
+    METADATA_ACCEPT = ("application/json;as=PartialObjectMetadata;"
+                       "g=meta.k8s.io;v=v1,application/json")
 
     def __init__(self, server: str, token_file: Optional[str] = None,
                  ca_file: Optional[str] = None, namespace: str = "default",
@@ -90,15 +96,17 @@ class InClusterClient:
         return "/".join(parts)
 
     def _request(self, method: str, url: str, what: str,
-                 body: Optional[dict] = None) -> dict:
-        headers = {"Accept": "application/json"}
+                 body: Optional[dict] = None,
+                 content_type: str = "application/json",
+                 accept: str = "application/json") -> dict:
+        headers = {"Accept": accept}
         if self.token_file:
             with open(self.token_file) as f:
                 headers["Authorization"] = f"Bearer {f.read().strip()}"
         data = None
         if body is not None:
             data = json.dumps(body).encode()
-            headers["Content-Type"] = "application/json"
+            headers["Content-Type"] = content_type
         req = urllib.request.Request(url, data=data, headers=headers,
                                      method=method)
         try:
@@ -113,9 +121,13 @@ class InClusterClient:
         return json.loads(raw) if raw else {}
 
     def get(self, api_version: str, kind: str, name: str,
-            namespace: Optional[str] = None) -> dict:
-        return self._request("GET", self._url(api_version, kind, name,
-                                              namespace), f"get {kind}/{name}")
+            namespace: Optional[str] = None,
+            metadata_only: bool = False) -> dict:
+        return self._request(
+            "GET", self._url(api_version, kind, name, namespace),
+            f"get {kind}/{name}",
+            accept=self.METADATA_ACCEPT if metadata_only
+            else "application/json")
 
     def get_or_none(self, api_version: str, kind: str, name: str,
                     namespace: Optional[str] = None) -> Optional[dict]:
@@ -130,6 +142,14 @@ class InClusterClient:
         url = self._url(obj["apiVersion"], kind, None, meta.get("namespace"))
         return self._request("POST", url, f"create {kind}/{meta.get('name')}",
                              body=obj)
+
+    def patch(self, api_version: str, kind: str, name: str, patch: dict,
+              namespace: Optional[str] = None) -> dict:
+        """A JSON merge patch (RFC 7386): a key set to None is removed."""
+        return self._request(
+            "PATCH", self._url(api_version, kind, name, namespace),
+            f"patch {kind}/{name}", body=patch,
+            content_type="application/merge-patch+json")
 
     def delete(self, api_version: str, kind: str, name: str,
                namespace: Optional[str] = None) -> None:

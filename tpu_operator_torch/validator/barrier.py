@@ -19,14 +19,20 @@ DEFAULT_DIR = "/run/nvidia/validations"
 RETRY_INTERVAL_S = 5.0
 DEFAULT_TIMEOUT_S = 300.0
 
+# the reference's list under the renames (jax -> cuda, ici -> nvlink,
+# vtpu -> vgpu), in its order; .driver-ctr-ready is the driver agent's
 KNOWN_STATUS_FILES = (
     "driver-ready",
     "runtime-ready",
     "cuda-ready",
     "plugin-ready",
-    "hbm-ready",
     "nvlink-ready",
+    "hbm-ready",
     "dcn-ready",
+    "topology-ready",
+    "fencing-ready",
+    "vgpu-ready",
+    ".driver-ctr-ready",
 )
 
 

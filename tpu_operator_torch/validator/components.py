@@ -16,6 +16,10 @@ stack and writes its barrier status file. Component -> proof:
 - ``dcn``      multi-node reachability: the job's rendezvous answers over
                the data-centre network -> dcn-ready; skipped on one node;
                optionally the cross-node all-reduce bandwidth
+- ``fencing``  isolated/virtual nodes: the fence is published and names
+               cards of this host -> fencing-ready
+- ``vgpu``     virtual nodes: the vGPU inventory backs onto fenced cards
+               only -> vgpu-ready; skipped on whole-card isolated nodes
 - ``cleanup``  preStop barrier teardown
 
 Env knobs, by their JAX-package names: ``TPU_FAKE_CHIPS`` ->
@@ -25,7 +29,8 @@ Env knobs, by their JAX-package names: ``TPU_FAKE_CHIPS`` ->
 ``MEGASCALE_NUM_SLICES`` -> ``GPU_NUM_NODES``,
 ``MEGASCALE_COORDINATOR_ADDRESS`` -> ``MASTER_ADDR:MASTER_PORT``
 (torchrun's; port 29500 by default), ``MEGASCALE_SLICE_ID`` ->
-``GROUP_RANK``; ``MATMUL_SIZE``, ``HBM_THRESHOLD``, ``HBM_SIZE_MB`` and
+``GROUP_RANK``, ``TPU_WORKLOAD_CONFIG`` -> ``GPU_WORKLOAD_CONFIG``;
+``MATMUL_SIZE``, ``HBM_THRESHOLD``, ``HBM_SIZE_MB`` and
 the ``DCN_*`` knobs keep their names.
 """
 
@@ -419,6 +424,107 @@ def _maybe_dcn_bandwidth_probe(info: Dict[str, str]) -> None:
             raise ValidationFailed(
                 f"DCN all-reduce bus bandwidth {res.bus_bw_gbps:.2f} is "
                 f"below the {thr:g} DCN_THRESHOLD")
+
+
+def validate_fencing() -> Dict[str, str]:
+    """Isolated/virtual nodes: the fence file exists, every fenced card is
+    a card of this host, and at least one card is fenced (an isolated
+    node with an empty fence serves nothing and must not pass its gate).
+    Fenced IDs are the device plugin's ``gpu<i>``, checked against its
+    discovery."""
+    from ..deviceplugin.plugin import discover_chips
+    from ..isolation.fencing import fenced_chips, read_fencing_file
+
+    cfg = read_fencing_file()
+    if cfg is None:
+        raise ValidationFailed(
+            "no fencing config published (is chip-fencing running?)")
+    fenced = fenced_chips()
+    if not fenced:
+        raise ValidationFailed(
+            f"fence is empty (config={cfg.get('config')!r}) — an isolated "
+            "node must fence at least one chip")
+    known = set(discover_chips())
+    unknown = [c for c in fenced if known and c not in known]
+    if unknown:
+        raise ValidationFailed(
+            f"fenced chips {unknown} are not present on this host "
+            f"(have {sorted(known)})")
+    info = {"FENCED_COUNT": str(len(fenced)),
+            "FENCED": ",".join(fenced),
+            "CONFIG": str(cfg.get("config", ""))}
+    barrier.write_status("fencing-ready", info)
+    return info
+
+
+def _node_workload_config() -> str:
+    """This node's workload config: GPU_WORKLOAD_CONFIG (tests), else the
+    node's label through the apiserver (best effort), else the plane's
+    default (GPU_DEFAULT_WORKLOAD_CONFIG, which the manifest passes so
+    the proof resolves an unlabelled node as the operator did)."""
+    env = os.environ.get("GPU_WORKLOAD_CONFIG", "")
+    if env:
+        return env
+    default = os.environ.get("GPU_DEFAULT_WORKLOAD_CONFIG", "")
+    node_name = os.environ.get("NODE_NAME", "")
+    if not node_name:
+        return default
+    try:
+        from ..api import labels as L
+        from ..runtime.kubeclient import InClusterClient
+
+        node = InClusterClient.from_env().get("v1", "Node", node_name)
+        return ((node.get("metadata") or {}).get("labels") or {}).get(
+            L.WORKLOAD_CONFIG, default)
+    except Exception:
+        return default
+
+
+def validate_vgpu() -> Dict[str, str]:
+    """Virtual nodes: the vGPU manager has published an inventory whose
+    backing cards are all fenced. A whole-card ``isolated`` node has no
+    inventory to prove: skipped."""
+    from ..isolation.fencing import fenced_chips
+    from ..isolation.vgpu import read_vgpu_file
+
+    config = _node_workload_config()
+    if config == "isolated":
+        # an inventory left over from a virtual -> isolated flip is stale
+        # by definition (the fencing agent withdraws it): never bless it
+        info = {"SKIPPED": "whole-chip isolated node, no vGPU inventory",
+                "WORKLOAD_CONFIG": config}
+        barrier.write_status("vgpu-ready", info)
+        return info
+    vgpu = read_vgpu_file()
+    if not vgpu or not vgpu.get("devices"):
+        if not config:
+            # isolated or virtual cannot be told: retry (WITH_WAIT)
+            # rather than demand an inventory that may never exist here
+            raise ValidationFailed(
+                "cannot determine this node's workload config (apiserver "
+                "unreachable or NODE_NAME unset) and no vGPU inventory is "
+                "published; retrying")
+        raise ValidationFailed(
+            "no vGPU inventory published (is vgpu-device-manager running "
+            "and the fence applied?)")
+    fenced = set(fenced_chips())
+    backing = {d.get("chip") for d in vgpu["devices"]}
+    stray = sorted(c for c in backing if c not in fenced)
+    if stray:
+        raise ValidationFailed(
+            f"vGPU devices back onto unfenced chips {stray} — the shared "
+            "pool would double-allocate them")
+    info = {"PROFILE": str(vgpu.get("profile", "")),
+            "VGPU_COUNT": str(len(vgpu["devices"])),
+            "CHIP_COUNT": str(len(backing))}
+    barrier.write_status("vgpu-ready", info)
+    return info
+
+
+def component_sleep() -> None:  # pragma: no cover - blocks forever
+    log.info("node validated; sleeping (DaemonSet main container)")
+    while True:
+        time.sleep(3600)
 
 
 def component_cleanup() -> None:

@@ -7,6 +7,8 @@ the node-status-exporter DaemonSet: one ``component_ready`` series per
 proof, the card count from ``driver-ready`` and the figures the proofs
 measured (``cuda-ready``'s TENSOR_CORE_UTILIZATION, ``nvlink-ready``'s
 FRACTION_OF_PEAK and SUITE_*_BUS_GBPS, ``hbm-ready``'s FRACTION_OF_PEAK).
+On nodes of the isolated plane it adds the ``fencing`` and ``vgpu``
+readiness series.
 """
 
 from __future__ import annotations
@@ -26,15 +28,20 @@ log = logging.getLogger("gpu_validator.metrics")
 POLL_INTERVAL_S = 30.0        # status-file poll
 REVALIDATE_INTERVAL_S = 60.0  # driver re-proof cadence
 
-# the reference's ISOLATION_COMPONENT_FILES (fencing, vtpu) and their
-# series, served only where the isolated plane runs, wait for the port's
-# fencing and MIG planes, which are not ported yet
 COMPONENT_FILES = {
     "driver": "driver-ready",
     "runtime": "runtime-ready",
     "cuda": "cuda-ready",
     "plugin": "plugin-ready",
     "nvlink": "nvlink-ready",
+}
+
+# isolated-plane components: served only where the plane runs (a fence
+# published), so a container node does not export a constant 0 that
+# reads like a failed validation
+ISOLATION_COMPONENT_FILES = {
+    "fencing": "fencing-ready",
+    "vgpu": "vgpu-ready",
 }
 
 
@@ -95,6 +102,16 @@ class NodeMetrics:
         self._published_ops: set = set()
         self._reval_count = 0
 
+    @staticmethod
+    def _isolation_plane_present() -> bool:
+        """The node runs the isolated plane iff a fence is published (or
+        its proof passed): what the exporter sees without the
+        apiserver."""
+        from ..isolation.fencing import read_fencing_file
+
+        return read_fencing_file() is not None or \
+            barrier.is_ready("fencing-ready")
+
     def collect_once(self, revalidate: bool = False) -> None:
         node = self.node_name
         if revalidate:
@@ -109,7 +126,10 @@ class NodeMetrics:
                 # every operand whenever this pod merely lacks the cards
                 log.warning("driver re-validation failed: %s", e)
                 self.revalidation_ok.labels(node=node).set(0)
-        for comp, fname in COMPONENT_FILES.items():
+        files = dict(COMPONENT_FILES)
+        if self._isolation_plane_present():
+            files.update(ISOLATION_COMPONENT_FILES)
+        for comp, fname in files.items():
             self.ready.labels(component=comp, node=node).set(
                 1 if barrier.is_ready(fname) else 0)
         info = barrier.read_status("driver-ready") or {}

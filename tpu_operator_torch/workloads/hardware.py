@@ -37,18 +37,23 @@ CHIPS = {
     "h100-pcie": ChipSpec("h100-pcie", 756.0, 80, 2000, 64.0),
 }
 
-# substrings of torch.cuda.get_device_name(), most specific first; an
-# unknown card maps to None and its proofs report without gating
+# substrings of a card's name, most specific first, after '-' and '_'
+# became spaces: torch.cuda.get_device_name() and NVML's name, the
+# feature label's form of it (NVIDIA-H100-80GB-HBM3) and GKE's
+# accelerator label (nvidia-h100-80gb, nvidia-h100-mega-80gb, both SXM).
+# An unknown card maps to None and its proofs report without gating
 _KIND_HINTS = (
     ("h100 pcie", "h100-pcie"),
     ("h100 80gb hbm3", "h100-sxm"),
     ("h100 sxm", "h100-sxm"),
+    ("h100 mega 80gb", "h100-sxm"),
+    ("nvidia h100 80gb", "h100-sxm"),
 )
 
 
 def chip_spec_for(device_kind: str) -> Optional[ChipSpec]:
     """Map a card name (e.g. 'NVIDIA H100 80GB HBM3') to a ChipSpec."""
-    kind = (device_kind or "").lower()
+    kind = (device_kind or "").lower().replace("-", " ").replace("_", " ")
     for hint, gen in _KIND_HINTS:
         if hint in kind:
             return CHIPS[gen]
