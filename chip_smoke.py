@@ -14,8 +14,9 @@ over every visible card, with its checkpoint/resume, the DCN probe and
 the multi-card dry run. The pipeline, the expert-parallel MoE and the
 conv burn-in run over every visible card. The node's status exporter,
 the CUDA validation pod's payload, chip telemetry over NVML and the
-forward entry point run on the card, and the node's allocation plane
-hands the card to child processes. Phases, each fatal:
+forward entry point run on the card, the node's allocation plane hands
+the card to child processes, and the topology manager groups the cards
+behind the device plugin. Phases, each fatal:
 
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
 2. build the hand-written kernels from the checkout's sources, one nvcc
@@ -83,6 +84,19 @@ E. the node's allocation plane, against a stub apiserver (one Node, GET,
    budget of its Allocate (0.9 of it fits, 1.1 raises OOM); fencing-ready,
    vgpu-ready and their gauges; the fence withdrawn; feature discovery's
    labels, patched once. No kernel launches in it;
+F. the topology manager, against the stub apiserver (now also listing
+   its nodes, with a stub peer node): NVML's NVLink facts per card (the
+   UUIDs torch's, the active links nvidia-smi's), feature discovery's
+   topology and multihost from them; the reference's profiles: ``full``
+   one group of every card, an unknown profile ``failed``, grouped
+   agreement on a multi-host pool (``GPU_TOPOLOGY=mnnvl-<n>``) ``pending``
+   until the peer asks for the same profile, then ``success``;
+   ``split-2`` ``failed`` on one card; on four, ``[gpu0, gpu1]`` and
+   ``[gpu2, gpu3]``, NVLink peers per NVML, served by the shared plugin
+   as ``slice0``/``slice1``, and one child per group (both at once, then
+   one alone) seeing its two cards alone by UUID and running phase 13's
+   all-reduce step over them, correct, with bus GB/s. No kernel launches
+   in it;
 14. print the kernel table as one JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``; on any failure the
@@ -1117,9 +1131,11 @@ def allreduce_step_rank(rank, world_size, device, size_mb: float) -> dict:
     for name in ("step", "bare", "copy_first", "copy_first", "bare", "step"):
         runs[name].append(best_ms({"step": step, "bare": bare,
                                    "copy_first": copy_first}[name]))
+    # every step averaged ones to ones, and every bare sum kept its zeros
+    correct = bool((x - 1).abs().max() <= 1e-6) and not bool(zeros.any())
     gb = k * 4 / 1e9
     bus = 2.0 * (n - 1) / n * gb
-    return {"bytes_per_rank": k * 4, "ms_runs": runs,
+    return {"bytes_per_rank": k * 4, "correct": correct, "ms_runs": runs,
             **{f"{name}_ms": min(r) for name, r in runs.items()},
             **{f"{name}_algo_gbps": gb / (min(r) / 1e3)
                for name, r in runs.items()},
@@ -1134,8 +1150,11 @@ def allreduce_step_phase(mesh, n_cards: int, card: str) -> dict:
     with tempfile.TemporaryDirectory(prefix="nccl-tuning-") as d:
         with environ(NCCL_DEBUG="INFO", NCCL_DEBUG_SUBSYS="TUNING",
                      NCCL_DEBUG_FILE=os.path.join(d, "nccl.%h.%p.log")):
-            r0 = mesh.spawn(allreduce_step_rank, n_cards, "cuda",
-                            args=(NVLINK_PROOF_SIZE_MB,), timeout_s=600)[0]
+            ranks = mesh.spawn(allreduce_step_rank, n_cards, "cuda",
+                               args=(NVLINK_PROOF_SIZE_MB,), timeout_s=600)
+        r0 = ranks[0]
+        if not all(r["correct"] for r in ranks):
+            raise RuntimeError("the all-reduce step gave a wrong sum")
         lines = []
         for name in sorted(os.listdir(d)):
             with open(os.path.join(d, name), errors="replace") as f:
@@ -1223,18 +1242,19 @@ def merge_patch(target: dict, patch: dict) -> dict:
 
 
 class StubApiserver:
-    """One Node over HTTP on 127.0.0.1: GET (whole, or its metadata under
-    the PartialObjectMetadata Accept) and merge-PATCH; records each
-    request's method, Accept and Content-Type."""
+    """Nodes over HTTP on 127.0.0.1: GET of one (whole, or its metadata
+    under the PartialObjectMetadata Accept), GET of the collection, and
+    merge-PATCH; records each request's method, Accept and Content-Type.
+    ``node`` is the first node, the one the agents run on."""
 
     def __init__(self, node_name: str, labels: dict):
         from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
-        self.node = {"apiVersion": "v1", "kind": "Node",
-                     "metadata": {"name": node_name, "labels": dict(labels)},
-                     "status": {"capacity": {}}}
+        self.nodes = {}
+        self.node_name = node_name
+        self.add_node(node_name, labels)
         self.requests = []
-        path = f"/api/v1/nodes/{node_name}"
+        prefix = "/api/v1/nodes"
         stub = self
 
         class Handler(BaseHTTPRequestHandler):
@@ -1246,29 +1266,41 @@ class StubApiserver:
                 self.end_headers()
                 self.wfile.write(body)
 
+            def _node(self):
+                name = self.path[len(prefix) + 1:]
+                if not self.path.startswith(prefix + "/"):
+                    return None
+                return stub.nodes.get(name)
+
             def do_GET(self):
                 accept = self.headers.get("Accept", "")
                 stub.requests.append(("GET", accept, ""))
-                if self.path != path:
+                if self.path == prefix:
+                    return self._answer(200, {
+                        "apiVersion": "v1", "kind": "NodeList",
+                        "items": list(stub.nodes.values())})
+                node = self._node()
+                if node is None:
                     return self._answer(404, {"reason": "NotFound"})
                 if "as=PartialObjectMetadata" in accept:
                     return self._answer(200, {
                         "apiVersion": "meta.k8s.io/v1",
                         "kind": "PartialObjectMetadata",
-                        "metadata": stub.node["metadata"]})
-                self._answer(200, stub.node)
+                        "metadata": node["metadata"]})
+                self._answer(200, node)
 
             def do_PATCH(self):
                 ctype = self.headers.get("Content-Type", "")
                 body = json.loads(self.rfile.read(
                     int(self.headers["Content-Length"])))
                 stub.requests.append(("PATCH", "", ctype))
-                if self.path != path:
+                node = self._node()
+                if node is None:
                     return self._answer(404, {"reason": "NotFound"})
                 if ctype != "application/merge-patch+json":
                     return self._answer(415, {"reason": ctype})
-                merge_patch(stub.node, body)
-                self._answer(200, stub.node)
+                merge_patch(node, body)
+                self._answer(200, node)
 
             def log_message(self, *args):
                 pass
@@ -1278,8 +1310,21 @@ class StubApiserver:
                          daemon=True).start()
         self.url = f"http://127.0.0.1:{self.server.server_address[1]}"
 
-    def labels(self) -> dict:
-        return dict(self.node["metadata"].get("labels") or {})
+    def add_node(self, name: str, labels: dict,
+                 allocatable: dict | None = None) -> None:
+        self.nodes[name] = {
+            "apiVersion": "v1", "kind": "Node",
+            "metadata": {"name": name, "labels": dict(labels)},
+            "status": {"capacity": dict(allocatable or {}),
+                       "allocatable": dict(allocatable or {})}}
+
+    @property
+    def node(self) -> dict:
+        return self.nodes[self.node_name]
+
+    def labels(self, name: str | None = None) -> dict:
+        node = self.nodes[name or self.node_name]
+        return dict(node["metadata"].get("labels") or {})
 
     def stop(self):
         self.server.shutdown()
@@ -1782,6 +1827,298 @@ def stub_health_engine(statuses: dict):
     return srv
 
 
+# phase F: the topology manager on the real cards. The profiles are the
+# reference's ConfigMap (full, split-2, split-4), read from its manifest;
+# each card group's child runs phase 13's all-reduce step over its two
+# cards at the proof's size
+TOPOLOGY_CONFIGMAP = os.path.join("manifests", "state-topology-manager",
+                                  "0300_config_map.yaml")
+GROUP_CHILD = """
+import json, sys, time
+t = {"main": time.time()}
+import torch
+t["torch_imported"] = time.time()
+n = torch.cuda.device_count()
+uuids = ["GPU-" + str(torch.cuda.get_device_properties(i).uuid)
+         for i in range(n)]
+torch.ones(1, device="cuda").sum().item()
+t["cuda_ready"] = time.time()
+import chip_smoke
+from tpu_operator_torch.parallel import mesh
+ranks = mesh.spawn(chip_smoke.allreduce_step_rank, n, "cuda",
+                   args=(float(sys.argv[1]),), timeout_s=300)
+t["done"] = time.time()
+print(json.dumps({"count": n, "uuids": uuids, "ranks": ranks, "t": t}))
+"""
+
+
+def configmap_profiles(path: str) -> str:
+    """The ``config.yaml`` block of a ConfigMap manifest (a template, so
+    read as text: the block is plain YAML)."""
+    import textwrap
+
+    with open(path) as f:
+        text = f.read()
+    return textwrap.dedent(text.split("config.yaml: |\n", 1)[1])
+
+
+def smi_active_links() -> list:
+    """Active NVLinks a card, in nvidia-smi's index order (``nvidia-smi
+    nvlink -s``: a link with a rate is up, ``<inactive>`` is not)."""
+    out = subprocess.run(["nvidia-smi", "nvlink", "-s"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    counts = []
+    for line in out.stdout.splitlines():
+        if line.startswith("GPU "):
+            counts.append(0)
+        elif counts and re.search(r"Link \d+: [\d.]+ GB/s", line):
+            counts[-1] += 1
+    return counts
+
+
+def group_children(groups: list, envs: list, card: str) -> dict:
+    """One child per card group, all at once, then the first alone; each
+    sees its group's cards by UUID and runs the all-reduce step over them.
+    Returns each run's results (start to CUDA ready in s, bus GB/s)."""
+
+    def run(i):
+        child_env = dict(os.environ, PYTHONPATH=os.getcwd(), **envs[i])
+        child_env["CUDA_VISIBLE_DEVICES"] = envs[i]["NVIDIA_VISIBLE_DEVICES"]
+        res, ready_s = child_run(GROUP_CHILD, child_env,
+                                 str(NVLINK_PROOF_SIZE_MB))
+        want = envs[i]["NVIDIA_VISIBLE_DEVICES"].split(",")
+        r0 = res["ranks"][0]
+        log(f"  slice{i} child ({groups[i]}): sees {res['count']} cards "
+            f"{res['uuids']}; start to CUDA ready {ready_s!r} s; all-reduce "
+            f"at {r0['bytes_per_rank']} bytes a rank correct "
+            f"{[r['correct'] for r in res['ranks']]}: step {r0['step_ms']!r} "
+            f"ms ({r0['step_bus_gbps']!r} GB/s bus), bare "
+            f"{r0['bare_ms']!r} ms ({r0['bare_bus_gbps']!r} GB/s bus) "
+            f"({card})")
+        if res["count"] != len(want) or sorted(res["uuids"]) != sorted(want):
+            raise RuntimeError(f"the slice{i} child saw {res['uuids']}, "
+                               f"not its own {want}")
+        if not all(r["correct"] for r in res["ranks"]):
+            raise RuntimeError(f"slice{i}'s all-reduce gave a wrong sum")
+        return {"ready_s": ready_s, "step_ms": r0["step_ms"],
+                "step_bus_gbps": r0["step_bus_gbps"],
+                "bare_ms": r0["bare_ms"], "bare_bus_gbps": r0["bare_bus_gbps"],
+                "ranks_s": res["t"]["done"] - res["t"]["cuda_ready"]}
+
+    with concurrent.futures.ThreadPoolExecutor(len(groups)) as pool:
+        together = list(pool.map(run, range(len(groups))))
+    alone = run(0)
+    log(f"  slice0 all-reduce step alone {alone['step_ms']!r} ms, beside "
+        f"slice1 {together[0]['step_ms']!r} ms ({card})")
+    return {"together": together, "alone": alone}
+
+
+def topology_phase(torch, card: str) -> dict:
+    """Phase F: the topology manager on the card(s), against a stub
+    apiserver (this node and a stub peer). Each step is gated: the
+    inventory's NVLink facts (UUIDs torch's, active links nvidia-smi's);
+    feature discovery's topology and multihost from NVML; the reference's
+    profiles: ``full`` one group of every card, an unknown profile
+    ``failed``, ``split-2`` ``failed`` on one card and two groups of NVLink
+    peers on four, served as slice0 and slice1 by the shared plugin, each
+    Allocate's child seeing its two cards alone and summing over them;
+    grouped agreement on a multi-host pool, ``pending`` until the peer
+    asks for the same profile. Times in ms."""
+    from tpu_operator_torch.api import labels as L
+    from tpu_operator_torch.deviceplugin import plugin as dp
+    from tpu_operator_torch.featurediscovery import FeatureDiscovery
+    from tpu_operator_torch.kernels import build
+    from tpu_operator_torch.runtime.kubeclient import InClusterClient
+    from tpu_operator_torch.state.nodepool import NodePool, topology_of
+    from tpu_operator_torch.topology import manager as tm
+
+    n = torch.cuda.device_count()
+    ids = [f"gpu{i}" for i in range(n)]
+    ms = {}
+    out = {"card": card, "ms": ms}
+    d = tempfile.mkdtemp(prefix="gpu-topology-")
+    slice_file = os.path.join(d, "slice-config.json")
+    sockets = os.path.join(d, "device-plugins")
+    os.makedirs(sockets)
+    profiles = os.path.join(d, "config.yaml")
+    with open(profiles, "w") as f:
+        f.write(configmap_profiles(TOPOLOGY_CONFIGMAP))
+    node_name, peer = "smoke-node", "smoke-peer"
+    api = StubApiserver(node_name, {L.GKE_NODEPOOL: "smoke-pool"})
+    api.node["status"]["allocatable"][L.GPU_RESOURCE] = str(n)
+    client = InClusterClient(api.url)
+    shared = shared_rpc = None
+    try:
+        with environ(GPU_SLICE_FILE=slice_file,
+                     GPU_FENCING_FILE=os.path.join(d, "no-fence.json"),
+                     GPU_FAKE_CHIPS=None, GPU_TELEMETRY_BIN=None,
+                     GPU_TOPOLOGY=None, GPU_HEALTH_ENGINE_INFO=None,
+                     SHARING_REPLICAS=None, GPU_PLUGIN_CONFIG_DIR=None):
+            # F1. NVML's facts: a scraper that does not build fails here,
+            # not as a node with no card
+            build.build_host("gpu_telemetry")
+            t0 = time.perf_counter()
+            inventory = dp.card_inventory()
+            ms["inventory"] = (time.perf_counter() - t0) * 1e3
+            torch_uuids = {"GPU-" + str(torch.cuda.get_device_properties(i)
+                                        .uuid) for i in range(n)}
+            if [c.id for c in inventory.cards] != ids or \
+                    {c.uuid for c in inventory.cards} != torch_uuids:
+                raise RuntimeError(f"NVML's inventory {inventory.cards} is "
+                                   f"not torch's {n} cards")
+            smi_links = smi_active_links()
+            for c in inventory.cards:
+                reach = sorted({str(r) for _, r in c.nvlink or ()})
+                log(f"  {c.id} {c.uuid} /dev/nvidia{c.minor}: "
+                    f"{'refused' if c.nvlink is None else len(c.nvlink)} "
+                    f"active NVLinks reaching {reach}; NVLink peers "
+                    f"{c.nvlink_peers}; fabric {c.fabric}; refused "
+                    f"{dict(c.refused)}")
+            links = [None if c.nvlink is None else len(c.nvlink)
+                     for c in inventory.cards]
+            topology = topology_of(inventory)
+            log(f"  active links: NVML {links}, nvidia-smi {smi_links}; "
+                f"topology {topology}; inventory in {ms['inventory']!r} ms "
+                f"({card})")
+            if links != smi_links or topology is None:
+                raise RuntimeError("NVML's NVLink facts disagree with "
+                                   "nvidia-smi or name no fabric")
+            out.update(topology=topology, links=links, cards=[
+                {"id": c.id, "nvlink_peers": c.nvlink_peers,
+                 "fabric": None if c.fabric is None else vars(c.fabric),
+                 "refused": dict(c.refused)} for c in inventory.cards])
+
+            # F2. feature discovery stamps the fabric
+            fd = FeatureDiscovery(client, node_name)
+            t0 = time.perf_counter()
+            delta = fd.apply_once()
+            ms["feature_discovery_apply_once"] = \
+                (time.perf_counter() - t0) * 1e3
+            labels = api.labels()
+            product = labels.get(L.GPU_PRODUCT, "")
+            multihost = str(NodePool(product, topology).multi_host).lower()
+            log(f"  FeatureDiscovery.apply_once in "
+                f"{ms['feature_discovery_apply_once']!r} ms: {delta}")
+            if labels.get(L.GPU_TOPOLOGY) != topology or \
+                    labels.get(L.GPU_MULTIHOST) != multihost:
+                raise RuntimeError(f"feature labels {labels}, want topology "
+                                   f"{topology}, multihost {multihost}")
+
+            # F3. the manager over the reference's profiles
+            mgr = tm.TopologyManager(client, node_name, profiles,
+                                     slice_file=slice_file)
+            if sorted(mgr.profiles) != ["full", "split-2", "split-4"]:
+                raise RuntimeError(f"profiles {sorted(mgr.profiles)}")
+
+            def ask(profile, name=node_name):
+                client.patch("v1", "Node", name, {"metadata": {"labels": {
+                    L.SLICE_CONFIG: profile}}})
+
+            def apply(want):
+                t0 = time.perf_counter()
+                state = mgr.apply_once()
+                ms.setdefault("apply_once", []).append(
+                    (time.perf_counter() - t0) * 1e3)
+                doc = tm.read_slice_file(slice_file)
+                log(f"  apply_once ({api.labels().get(L.SLICE_CONFIG)}): "
+                    f"{state} in {ms['apply_once'][-1]!r} ms; node label "
+                    f"{api.labels().get(L.SLICE_CONFIG_STATE)}; slice file "
+                    f"{doc} ({card})")
+                if state != want or \
+                        api.labels().get(L.SLICE_CONFIG_STATE) != want:
+                    raise RuntimeError(f"the manager gave {state}, not "
+                                       f"{want}")
+                return doc
+
+            doc = apply("success")
+            units = [dev.ID for dev in dp.discover_devices()]
+            if doc["groups"] != [ids] or units != ids:
+                raise RuntimeError(f"full gave {doc}; the plugin lists "
+                                   f"{units}")
+            ask("no-such-profile")
+            apply("failed")
+
+            # grouped agreement: this node and a stub peer of one multi-host
+            # pool (GPU_TOPOLOGY names an NVLink domain across hosts)
+            domain = f"mnnvl-{n}"
+            with environ(GPU_TOPOLOGY=domain):
+                fd.apply_once()
+            api.add_node(peer, {L.GPU_PRODUCT: product,
+                                L.GPU_TOPOLOGY: domain,
+                                L.GKE_NODEPOOL: "smoke-pool",
+                                L.SLICE_CONFIG: "split-4"})
+            ask("full")
+            log(f"  node {api.labels()}; peer {api.labels(peer)}")
+            if api.labels().get(L.GPU_MULTIHOST) != "true":
+                raise RuntimeError("GPU_TOPOLOGY did not make the pool "
+                                   "multi-host")
+            apply("pending")
+            ask("full", peer)
+            apply("success")
+            fd.apply_once()
+            if (api.labels().get(L.GPU_TOPOLOGY),
+                    api.labels().get(L.GPU_MULTIHOST)) != (topology,
+                                                          multihost):
+                raise RuntimeError("feature discovery did not restore "
+                                   "NVML's topology")
+
+            ask("split-2")
+            if n % 2:
+                try:
+                    tm.chip_groups(ids, 2)
+                except ValueError as e:
+                    log(f"  split-2 on {n} card(s): {e}")
+                apply("failed")
+            else:
+                doc = apply("success")
+                half = n // 2
+                groups = [ids[:half], ids[half:]]
+                if doc["groups"] != groups:
+                    raise RuntimeError(f"split-2 gave {doc['groups']}")
+                for g in groups:
+                    for a in g:
+                        peers = inventory.card(a).nvlink_peers
+                        if peers is None or set(g) - {a} - set(peers):
+                            raise RuntimeError(f"NVML does not report "
+                                               f"{g} as NVLink peers")
+            if n >= 4 and n % 2 == 0:
+                # F4. the groups behind the shared plugin, and a child each
+                t0 = time.perf_counter()
+                shared = dp.GpuDevicePlugin(socket_dir=sockets,
+                                            health_interval_s=3600)
+                shared.start()
+                shared_rpc = PluginClient(shared.socket_path)
+                listed = shared_rpc.next_list()
+                ms["shared_start_to_first_list"] = \
+                    (time.perf_counter() - t0) * 1e3
+                log(f"  shared plugin: first ListAndWatch {listed} in "
+                    f"{ms['shared_start_to_first_list']!r} ms ({card})")
+                if listed != {"slice0": dp.HEALTHY, "slice1": dp.HEALTHY}:
+                    raise RuntimeError(f"the shared plugin listed {listed}")
+                envs = []
+                for i, g in enumerate(groups):
+                    env, paths, t_ms = shared_rpc.allocate([f"slice{i}"])
+                    ms.setdefault("slice_allocate", []).append(t_ms)
+                    members = [inventory.card(c) for c in g]
+                    log(f"  Allocate([slice{i}]) in {t_ms!r} ms: {paths} "
+                        f"{env} ({card})")
+                    if env.get("NVIDIA_VISIBLE_DEVICES") != ",".join(
+                            c.uuid for c in members) or paths[:half] != [
+                            f"/dev/nvidia{c.minor}" for c in members]:
+                        raise RuntimeError(f"Allocate of slice{i} named "
+                                           f"{env} {paths}, not {g}")
+                    envs.append(env)
+                out["children"] = group_children(groups, envs, card)
+    finally:
+        if shared_rpc is not None:
+            shared_rpc.close()
+        if shared is not None:
+            shared.stop()
+        api.stop()
+        shutil.rmtree(d, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2023,6 +2360,22 @@ def main() -> int:
     if any(plane["launches"].values()):
         raise RuntimeError("the allocation plane launched a kernel")
     log(json.dumps({"allocation_plane": plane}))
+
+    # F: the topology manager; no kernel of this repo lies on it (it reads
+    # NVML, and its children sum with NCCL), and the counts read after it
+    # say so
+    hbm_probe.triad_.launches = 0
+    fa.flash_attention_blocks.launches = 0
+    log("# phase F: the topology manager (NVLink facts, card groups behind "
+        "the device plugin, grouped agreement, the topology labels)")
+    torch.cuda.empty_cache()
+    topo = topology_phase(torch, card)
+    topo["launches"] = {"triad": hbm_probe.triad_.launches,
+                        "flash_attention": fa.flash_attention_blocks.launches}
+    log(f"  kernel launches in phase F: {topo['launches']}")
+    if any(topo["launches"].values()):
+        raise RuntimeError("the topology manager launched a kernel")
+    log(json.dumps({"topology_manager": topo}))
 
     # 14. the kernel table
     kernels = [{

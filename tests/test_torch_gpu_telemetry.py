@@ -5,7 +5,11 @@ CPU. ``gpu-telemetry`` is built with the host compiler against a fake
 its exit codes and its ``--watch`` ticks. The port's samples go through
 the reference's health engine (``sample_to_dict``, ``evaluate_chip``),
 the port's ``collect_remote`` reads a reference ``HealthEngine`` server,
-and the two exporters' gauges agree under the renames."""
+and the two exporters' gauges agree under the renames. The inventory's
+NVLink facts (``--inventory``: active links and what each reaches, NVLink
+peers, the fabric registration) are parsed into the device plugin's
+``Card`` and classified by ``state.nodepool.topology_of``; each call NVML
+refuses, or the library lacks, is reported as missing with its code."""
 
 import json
 import os
@@ -18,13 +22,24 @@ from prometheus_client.parser import text_string_to_metric_families
 
 from tpu_operator.metrics import health_engine
 from tpu_operator.metrics import libtpu_exporter as ref
+from tpu_operator_torch.deviceplugin import plugin
 from tpu_operator_torch.kernels import build
 from tpu_operator_torch.metrics import gpu_exporter as exp
+from tpu_operator_torch.state.nodepool import topology_of
 
 # a fake NVML: FAKE_NVML_CARDS cards (default 2), FAKE_NVML_INIT_FAIL
 # fails nvmlInit_v2, FAKE_NVML_UNSUPPORTED names the queries that answer
-# NOT_SUPPORTED (3): "memory", "utilization", "temperature"
+# NOT_SUPPORTED (3): "memory", "utilization", "temperature", "nvlink",
+# "remote", "fabric"; "p2p" answers NO_PERMISSION (4). The inventory's
+# NVLink facts: FAKE_NVML_LINK_COUNT links a card (default 18; a link past
+# it is INVALID_ARGUMENT), the first FAKE_NVML_LINKS of them active
+# (default all), each reaching FAKE_NVML_REMOTE (NVML's device type,
+# default 2, an NVSwitch); cards are NVLink peers when links are active;
+# the fabric is registered (v3 layout, or v2 alone under
+# FAKE_NVML_FABRIC_V2) with a zero cluster UUID, or under FAKE_NVML_CLUSTER
+# a cluster's. Built with -DNO_NVLINK it lacks those four entry points.
 FAKE_NVML_C = r"""
+#include <stdio.h>
 #include <stdlib.h>
 #include <string.h>
 typedef struct { unsigned long long total, free, used; } mem_t;
@@ -66,6 +81,65 @@ int nvmlDeviceGetTemperature(void* h, int sensor, unsigned int* t) {
   *t = sensor == 0 ? 40 + index_of(h) : 0;
   return 0;
 }
+int nvmlSystemGetDriverVersion(char* v, unsigned int n) {
+  snprintf(v, n, "580.159.03");
+  return 0;
+}
+int nvmlDeviceGetUUID(void* h, char* v, unsigned int n) {
+  snprintf(v, n, "GPU-fake-%u", index_of(h));
+  return 0;
+}
+int nvmlDeviceGetMinorNumber(void* h, unsigned int* m) {
+  *m = index_of(h);
+  return 0;
+}
+int nvmlDeviceGetName(void* h, char* v, unsigned int n) {
+  snprintf(v, n, "NVIDIA H100 80GB HBM3");
+  return 0;
+}
+#ifndef NO_NVLINK
+static unsigned int env_or(const char* name, unsigned int fallback) {
+  const char* s = getenv(name);
+  return s ? (unsigned) atoi(s) : fallback;
+}
+int nvmlDeviceGetNvLinkState(void* h, unsigned int link, int* active) {
+  if (refused("nvlink")) return 3;
+  if (link >= env_or("FAKE_NVML_LINK_COUNT", 18)) return 2;
+  *active = link < env_or("FAKE_NVML_LINKS", 18);
+  return 0;
+}
+int nvmlDeviceGetNvLinkRemoteDeviceType(void* h, unsigned int link, int* t) {
+  if (refused("remote")) return 3;
+  *t = (int) env_or("FAKE_NVML_REMOTE", 2);
+  return 0;
+}
+int nvmlDeviceGetP2PStatus(void* a, void* b, int index, int* status) {
+  if (refused("p2p")) return 4;
+  *status = index == 2 && env_or("FAKE_NVML_LINKS", 18) > 0 ? 0 : 5;
+  return 0;
+}
+typedef struct {
+  unsigned int version;
+  unsigned char cluster_uuid[16];
+  int status;
+  unsigned int clique_id;
+  unsigned char state;
+  unsigned int health_mask;
+  unsigned char health_summary;
+} fabric_t;
+int nvmlDeviceGetGpuFabricInfoV(void* h, fabric_t* f) {
+  if (refused("fabric")) return 3;
+  unsigned int want = getenv("FAKE_NVML_FABRIC_V2") ? 36u | (2u << 24)
+                                                    : 40u | (3u << 24);
+  if (f->version != want) return 25;
+  int cluster = getenv("FAKE_NVML_CLUSTER") != NULL;
+  for (int i = 0; i < 16; ++i) f->cluster_uuid[i] = cluster ? 0x10 + i : 0;
+  f->status = 0;
+  f->clique_id = cluster ? 7 : 0;
+  f->state = 3;
+  return 0;
+}
+#endif
 """
 
 CARD = "NVIDIA H100 80GB HBM3"
@@ -84,27 +158,33 @@ FIELDS = ("chip_id", "duty_cycle_pct", "hbm_used", "hbm_total",
 
 @pytest.fixture(scope="module")
 def built(tmp_path_factory):
-    """(gpu-telemetry, fake NVML): the scraper built by ``build_host``
-    into a private build directory."""
+    """(gpu-telemetry, fake NVML, the fake without NVLink entry points):
+    the scraper built by ``build_host`` into a private build directory."""
     d = tmp_path_factory.mktemp("telemetry")
     src = d / "fake_nvml.c"
     src.write_text(FAKE_NVML_C)
     lib = d / "libnvidia-ml.so.1"
-    subprocess.run([build.find_cxx(), "-x", "c", "-shared", "-fPIC", "-o",
-                    str(lib), str(src)], check=True, capture_output=True)
+    old = d / "old" / "libnvidia-ml.so.1"
+    old.parent.mkdir()
+    for out, flags in ((lib, []), (old, ["-DNO_NVLINK"])):
+        subprocess.run([build.find_cxx(), "-x", "c", "-shared", "-fPIC",
+                        *flags, "-o", str(out), str(src)], check=True,
+                       capture_output=True)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(build, "BUILD_DIR", d / "kernels")
         binary = build.build_host("gpu_telemetry").path
-    return str(binary), str(lib)
+    return str(binary), str(lib), str(old)
 
 
 @pytest.fixture
 def env(monkeypatch, built):
-    binary, lib = built
+    binary, lib, _ = built
     for k in ("GPU_FAKE_CHIPS", "TPU_FAKE_CHIPS", "GPU_TELEMETRY_WATCH",
               "GPU_HEALTH_ENGINE_INFO", "GPU_EXPORTER_USE_TORCH",
               "FAKE_NVML_CARDS", "FAKE_NVML_INIT_FAIL",
-              "FAKE_NVML_UNSUPPORTED"):
+              "FAKE_NVML_UNSUPPORTED", "FAKE_NVML_LINK_COUNT",
+              "FAKE_NVML_LINKS", "FAKE_NVML_REMOTE", "FAKE_NVML_FABRIC_V2",
+              "FAKE_NVML_CLUSTER"):
         monkeypatch.delenv(k, raising=False)
     monkeypatch.setenv("GPU_TELEMETRY_BIN", binary)
     monkeypatch.setenv("GPU_TELEMETRY_NVML", lib)
@@ -198,6 +278,89 @@ def test_watch_ticks_and_survives_empty_ticks(env, monkeypatch):
             proc.terminate()
             proc.wait(5)
         assert [len(json.loads(line)) for line in lines] == [cards, cards]
+
+
+# --- the inventory's NVLink facts --------------------------------------------
+
+ZERO_UUID = "00000000-0000-0000-0000-000000000000"
+CLUSTER_UUID = "10111213-1415-1617-1819-1a1b1c1d1e1f"
+
+
+def inventory_cards(binary):
+    out = scrape(binary, "--inventory")
+    assert out.returncode == 0, out.stderr
+    return json.loads(out.stdout)["cards"], out.stderr
+
+
+def test_inventory_nvlink_facts(env):
+    cards, stderr = inventory_cards(env[0])
+    assert [c["chip_id"] for c in cards] == ["gpu0", "gpu1"]
+    for i, c in enumerate(cards):
+        assert c["nvlink"] == [{"link": ln, "remote": "nvswitch"}
+                               for ln in range(18)]
+        assert c["nvlink_peers"] == [f"gpu{1 - i}"]
+        assert c["fabric"] == {"cluster_uuid": ZERO_UUID, "clique_id": 0,
+                               "state": "completed", "status": 0}
+        assert c["refused"] == {}
+    assert stderr == ""
+
+
+@pytest.mark.parametrize("setting, links, fabric, topology", [
+    ({}, [(ln, "nvswitch") for ln in range(18)], ZERO_UUID, "nvswitch-2"),
+    ({"FAKE_NVML_LINK_COUNT": "12", "FAKE_NVML_LINKS": "4",
+      "FAKE_NVML_REMOTE": "0"}, [(ln, "gpu") for ln in range(4)],
+     ZERO_UUID, "nvlink-2"),
+    ({"FAKE_NVML_LINKS": "0"}, [], ZERO_UUID, "pcie-2"),
+    ({"FAKE_NVML_CLUSTER": "1", "FAKE_NVML_FABRIC_V2": "1"},
+     [(ln, "nvswitch") for ln in range(18)], CLUSTER_UUID, "mnnvl-2"),
+], ids=["nvswitch", "bridges", "no-link", "cluster-v2-layout"])
+def test_inventory_is_parsed_and_classified(env, monkeypatch, setting,
+                                            links, fabric, topology):
+    for k, v in setting.items():
+        monkeypatch.setenv(k, v)
+    inv = plugin.card_inventory()
+    assert [c.uuid for c in inv.cards] == ["GPU-fake-0", "GPU-fake-1"]
+    for c in inv.cards:
+        assert c.nvlink == tuple(links)
+        assert c.fabric.cluster_uuid == fabric
+        assert c.fabric.spans_hosts == (fabric == CLUSTER_UUID)
+        assert c.refused == ()
+    assert inv.cards[0].nvlink_peers == (("gpu1",) if links else ())
+    assert topology_of(inv) == topology
+
+
+@pytest.mark.parametrize("refused, missing, call, code, topology", [
+    ("nvlink", "nvlink", "nvmlDeviceGetNvLinkState", 3, None),
+    ("remote", None, "nvmlDeviceGetNvLinkRemoteDeviceType", 3, None),
+    ("p2p", "nvlink_peers", "nvmlDeviceGetP2PStatus", 4, "nvswitch-2"),
+    ("fabric", "fabric", "nvmlDeviceGetGpuFabricInfoV", 3, "nvswitch-2"),
+])
+def test_nvlink_refusals_are_reported_not_invented(env, monkeypatch, refused,
+                                                   missing, call, code,
+                                                   topology):
+    monkeypatch.setenv("FAKE_NVML_UNSUPPORTED", refused)
+    cards, stderr = inventory_cards(env[0])
+    for c in cards:
+        assert c["refused"] == {call: code}
+        if missing:
+            assert c[missing] is None
+        else:  # the links are known, what they reach is not
+            assert {ln["remote"] for ln in c["nvlink"]} == {None}
+    assert f"{call}: " in stderr and f"({code})" in stderr
+    assert topology_of(plugin.card_inventory()) == topology
+
+
+def test_a_library_without_the_nvlink_calls(env, monkeypatch, built):
+    monkeypatch.setenv("GPU_TELEMETRY_NVML", built[2])
+    cards, stderr = inventory_cards(env[0])
+    absent = {"nvmlDeviceGetNvLinkState": None,
+              "nvmlDeviceGetP2PStatus": None,
+              "nvmlDeviceGetGpuFabricInfoV": None}
+    assert [(c["nvlink"], c["nvlink_peers"], c["fabric"], c["refused"])
+            for c in cards] == [(None, None, None, absent)] * 2
+    inv = plugin.card_inventory()
+    assert [c.refused for c in inv.cards] == [tuple(absent.items())] * 2
+    assert topology_of(inv) is None
 
 
 # --- the samples against the reference's health engine -----------------------

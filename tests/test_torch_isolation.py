@@ -110,6 +110,8 @@ def test_port_imports_without_jax_or_the_jax_package():
         "tpu_operator_torch.metrics.health_engine",
         "tpu_operator_torch.featurediscovery.agent",
         "tpu_operator_torch.cli.node_agents",
+        "tpu_operator_torch.state.nodepool",
+        "tpu_operator_torch.topology.manager",
     }
     assert expected <= set(res["modules"])
     assert res["leaked"] == []

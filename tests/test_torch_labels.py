@@ -15,6 +15,7 @@ from tpu_operator_torch.api import labels as L
 from tpu_operator_torch.deviceplugin import plugin
 from tpu_operator_torch.isolation import fencing, vgpu
 from tpu_operator_torch.metrics import health_engine as he
+from tpu_operator_torch.topology import manager
 from tpu_operator_torch.validator import barrier
 
 # inside a label's suffix, in this order
@@ -62,6 +63,12 @@ CONSTANTS = [
     ("DOMAIN", "DOMAIN"),
     ("DEPLOY_PREFIX", "DEPLOY_PREFIX"),
     ("WORKLOAD_CONFIG", "WORKLOAD_CONFIG"),
+    ("SLICE_CONFIG", "SLICE_CONFIG"),
+    ("SLICE_CONFIG_STATE", "SLICE_CONFIG_STATE"),
+    ("TPU_CHIP_COUNT", "GPU_CHIP_COUNT"),
+    ("TPU_TOPOLOGY", "GPU_TOPOLOGY"),
+    ("TPU_MULTIHOST", "GPU_MULTIHOST"),
+    ("GKE_NODEPOOL", "GKE_NODEPOOL"),
     ("FENCING_CONFIG", "FENCING_CONFIG"),
     ("FENCING_STATE", "FENCING_STATE"),
     ("VTPU_CONFIG", "VGPU_CONFIG"),
@@ -87,7 +94,8 @@ def test_constant_follows_the_rule(ref_name, port_name):
 
 def test_the_port_has_no_other_label():
     """Every upper-case string constant of the port's labels module is in
-    the table above, or is GKE's accelerator label (a discovery input)."""
+    the table above, or is GKE's accelerator label (a discovery input;
+    GKE's nodepool label is the reference's, unchanged)."""
     names = {n for n, v in vars(L).items()
              if n.isupper() and isinstance(v, str)}
     assert names == {p for _, p in CONSTANTS} | {"GKE_ACCELERATOR"}
@@ -95,9 +103,7 @@ def test_the_port_has_no_other_label():
 
 
 def test_feature_labels():
-    waiting = {RL.TPU_TOPOLOGY, RL.TPU_MULTIHOST}  # the topology item's
-    assert L.FEATURE_LABELS == tuple(rename(k) for k in RL.FEATURE_LABELS
-                                     if k not in waiting)
+    assert L.FEATURE_LABELS == tuple(rename(k) for k in RL.FEATURE_LABELS)
 
 
 @pytest.mark.parametrize("config", ["container", "isolated", "virtual"])
@@ -116,7 +122,7 @@ def test_workload_state_sets(config):
     (rfencing.DEFAULT_FENCING_FILE, fencing.DEFAULT_FENCING_FILE),
     (rvtpu.DEFAULT_VTPU_FILE, vgpu.DEFAULT_VGPU_FILE),
     (rbarrier.DEFAULT_DIR, barrier.DEFAULT_DIR),
-    ("/run/tpu/slice-config.json", plugin.DEFAULT_SLICE_FILE),
+    ("/run/tpu/slice-config.json", manager.DEFAULT_SLICE_FILE),
 ], ids=["fencing", "vgpu", "validations", "slices"])
 def test_host_paths(ref, ours):
     assert ours == rename(ref)

@@ -17,6 +17,7 @@ import os
 import subprocess
 import sys
 import threading
+import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import pytest
@@ -139,10 +140,17 @@ def test_inventory_json(nvml):
     assert out.returncode == 0, out.stderr
     doc = json.loads(out.stdout)
     assert doc["driver_version"] == "550.54.15"
+    # this fake NVML has no NVLink entry points: their fields are missing,
+    # and the calls named as absent
     assert doc["cards"] == [
         {"chip_id": f"gpu{i}", "index": i, "uuid": f"GPU-fake-{i}",
          "minor": 4 + i, "name": "NVIDIA H100 80GB HBM3",
-         "memory_total_bytes": 80 << 30} for i in range(2)]
+         "memory_total_bytes": 80 << 30, "nvlink": None,
+         "nvlink_peers": None, "fabric": None,
+         "refused": {"nvmlDeviceGetNvLinkState": None,
+                     "nvmlDeviceGetP2PStatus": None,
+                     "nvmlDeviceGetGpuFabricInfoV": None}}
+        for i in range(2)]
 
 
 def test_inventory_names_cards_by_index_and_mounts_by_minor(nvml,
@@ -323,7 +331,9 @@ def test_main_dispatches_on_argv0(nvml, monkeypatch):
 
 class StubApiserver:
     """One Node: GET (the metadata alone under the PartialObjectMetadata
-    Accept) and merge-PATCH; records method, Accept and Content-Type."""
+    Accept), the collection's GET (a ``labelSelector`` of key=value
+    terms) and merge-PATCH; records method, path, Accept and
+    Content-Type."""
 
     def __init__(self):
         self.node = {"apiVersion": "v1", "kind": "Node",
@@ -344,6 +354,16 @@ class StubApiserver:
             def do_GET(self):
                 accept = self.headers.get("Accept")
                 stub.requests.append(("GET", self.path, accept))
+                url = urllib.parse.urlsplit(self.path)
+                if url.path == "/api/v1/nodes":
+                    query = urllib.parse.parse_qs(url.query)
+                    terms = [t.split("=", 1) for t in ",".join(
+                        query.get("labelSelector", [])).split(",") if t]
+                    labels = stub.node["metadata"]["labels"]
+                    items = [stub.node] if all(
+                        labels.get(k) == v for k, v in terms) else []
+                    return self._reply(200, {"kind": "NodeList",
+                                             "items": items})
                 if self.path != "/api/v1/nodes/n0":
                     return self._reply(404, {"reason": "NotFound"})
                 if "as=PartialObjectMetadata" in accept:
@@ -417,3 +437,45 @@ def test_node_config_selector_reads_one_label(apiserver, monkeypatch):
     assert selector() == "gold"
     assert {r[2] for r in apiserver.requests} == {
         kubeclient.InClusterClient.METADATA_ACCEPT}
+
+
+@pytest.mark.parametrize("selector, found", [
+    (None, True), ({"a": "1"}, True), ({"a": "2"}, False),
+    ({"a": "1", L.GPU_TOPOLOGY: "nvswitch-8"}, False),
+])
+def test_client_lists_nodes(apiserver, selector, found):
+    c = kubeclient.InClusterClient(apiserver.url)
+    items = c.list("v1", "Node", label_selector=selector)
+    assert items == ([apiserver.node] if found else [])
+    method, path, accept = apiserver.requests[-1]
+    assert (method, accept) == ("GET", "application/json")
+    if selector:
+        query = urllib.parse.parse_qs(urllib.parse.urlsplit(path).query)
+        assert query == {"labelSelector": [",".join(
+            f"{k}={v}" for k, v in selector.items())]}
+    else:
+        assert path == "/api/v1/nodes"
+
+
+def test_topology_manager_agent(nvml, apiserver, monkeypatch, tmp_path):
+    """``gpu-topology-manager`` runs topology.manager.main: the node's
+    profile from its label, the cards from NVML, the file where
+    GPU_SLICE_FILE says, the state patched through the client."""
+    from tpu_operator_torch.topology import manager
+
+    config = tmp_path / "config.yaml"
+    config.write_text("profiles:\n  split-2:\n    subslices: 2\n")
+    monkeypatch.setenv("NODE_NAME", "n0")
+    monkeypatch.setenv("CONFIG_FILE", str(config))
+    monkeypatch.setenv("DEFAULT_PROFILE", "split-2")
+    monkeypatch.setenv("GPU_SLICE_FILE", str(tmp_path / "slices.json"))
+    monkeypatch.setattr(kubeclient.InClusterClient, "from_env", classmethod(
+        lambda cls: cls(apiserver.url)))
+    monkeypatch.setattr(manager.TopologyManager, "run_forever",
+                        lambda self: self.apply_once())
+    apiserver.node["metadata"]["labels"][L.GPU_CHIP_COUNT] = "2"
+    assert agents.main(["gpu-topology-manager"]) == 0
+    assert apiserver.node["metadata"]["labels"][L.SLICE_CONFIG_STATE] == \
+        "success"
+    assert manager.read_slice_file(str(tmp_path / "slices.json")) == {
+        "profile": "split-2", "subslices": 2, "groups": [["gpu0"], ["gpu1"]]}

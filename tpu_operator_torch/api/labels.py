@@ -15,29 +15,36 @@ reference's names onto the port's (ROADMAP.md §C holds the table):
 - paths ``/run/tpu/*`` -> ``/run/nvidia/*``.
 
 Only what the ported modules read is here. The GKE TPU node labels and
-the topology, upgrade, placement, quota and federation constants wait
-for the modules that read them.
+the upgrade, placement, quota and federation constants wait for the
+modules that read them.
 """
 
-# --- GKE's node label for an attached accelerator (a discovery hint) -------
+# --- GKE's node labels (discovery inputs) ----------------------------------
 GKE_ACCELERATOR = "cloud.google.com/gke-accelerator"  # e.g. nvidia-h100-80gb
+GKE_NODEPOOL = "cloud.google.com/gke-nodepool"        # pool identity
 
 # --- labels stamped by the operator and its node agents --------------------
 DOMAIN = "gpu.graft.dev"
 DEPLOY_PREFIX = f"{DOMAIN}/deploy."               # per-operand deploy label
 WORKLOAD_CONFIG = f"{DOMAIN}/workload.config"     # container | isolated | virtual
+SLICE_CONFIG = f"{DOMAIN}/slice.config"           # slice profile name
+SLICE_CONFIG_STATE = f"{DOMAIN}/slice.config.state"  # pending|success|failed
 FENCING_CONFIG = f"{DOMAIN}/fencing.config"       # all | none | card list
 FENCING_STATE = f"{DOMAIN}/fencing.state"         # success | failed
 VGPU_CONFIG = f"{DOMAIN}/vgpu.config"             # vGPU profile name
 VGPU_CONFIG_STATE = f"{DOMAIN}/vgpu.config.state"  # pending|success|failed
 DEVICE_PLUGIN_CONFIG = f"{DOMAIN}/device-plugin.config"  # per-node plugin config
+GPU_CHIP_COUNT = f"{DOMAIN}/gpu.chips"            # cards on the node
 
 # --- feature-discovery labels (stamped by the on-node agent only) ----------
+GPU_TOPOLOGY = f"{DOMAIN}/gpu.topology"           # <fabric>-<cards>, nvswitch-8
 GPU_PRODUCT = f"{DOMAIN}/gpu.product"             # e.g. NVIDIA-H100-80GB-HBM3
 GPU_MEMORY_GB = f"{DOMAIN}/gpu.memory-gb"         # memory per card
 GPU_NVLINK_GBPS = f"{DOMAIN}/gpu.nvlink-gbps"     # one-way link rate per card
+GPU_MULTIHOST = f"{DOMAIN}/gpu.multihost"         # NVLink domain spans hosts
 DRIVER_VERSION = f"{DOMAIN}/driver.version"       # NVML's driver version
-FEATURE_LABELS = (GPU_PRODUCT, GPU_MEMORY_GB, GPU_NVLINK_GBPS, DRIVER_VERSION)
+FEATURE_LABELS = (GPU_TOPOLOGY, GPU_PRODUCT, GPU_MEMORY_GB, GPU_NVLINK_GBPS,
+                  GPU_MULTIHOST, DRIVER_VERSION)
 
 # --- annotations -----------------------------------------------------------
 # the node health engine's digest: compact JSON {"v": 1, "status",

@@ -22,6 +22,8 @@ Counterpart of ``tpu_operator/cli/node_agents.py``:
 - ``gpu-device-plugin`` / ``gpu-isolated-device-plugin``: serve the
   shared and the isolated pool; the shared plugin picks its per-node
   config by the ``gpu.graft.dev/device-plugin.config`` label.
+- ``gpu-topology-manager``: group the node's cards by the profile its
+  ``gpu.graft.dev/slice.config`` label names (``topology.manager``).
 
 Run as ``python -m tpu_operator_torch.cli.node_agents <agent> [args]``,
 or under the agent's name as argv[0].
@@ -262,12 +264,20 @@ def isolated_device_plugin_main(argv=None) -> int:
     return 0
 
 
+def topology_manager_main(argv=None) -> int:
+    """The mig-manager slot: group the node's cards by profile."""
+    from ..topology.manager import main
+
+    return main()
+
+
 MAINS = {
     "gpu-driver-manager": driver_manager_main,
     "gpu-driver-install": driver_install_main,
     "gpu-runtime-setup": runtime_setup_main,
     "gpu-device-plugin": device_plugin_main,
     "gpu-isolated-device-plugin": isolated_device_plugin_main,
+    "gpu-topology-manager": topology_manager_main,
 }
 
 

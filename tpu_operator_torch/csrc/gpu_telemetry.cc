@@ -40,6 +40,24 @@
 // a line on stderr; exit code 1 when NVML cannot be opened or lacks the
 // inventory's entry points.
 //
+// Each card also carries its NVLink facts, read where the library has
+// the entry point:
+//   "nvlink": [{"link": 0, "remote": "nvswitch"}, ...]  the active links
+//       (nvmlDeviceGetNvLinkState over links 0..17) and what each reaches
+//       (nvmlDeviceGetNvLinkRemoteDeviceType: gpu, ibmnpu, nvswitch or
+//       unknown; null where refused);
+//   "nvlink_peers": ["gpu1", ...]  the cards NVML reports reachable over
+//       NVLink (nvmlDeviceGetP2PStatus, the NVLink capability);
+//   "fabric": {"cluster_uuid": "...", "clique_id": N, "state":
+//       "not_supported"|"not_started"|"in_progress"|"completed",
+//       "status": N}  the card's NVLink fabric registration
+//       (nvmlDeviceGetGpuFabricInfoV), the counterpart of an ICI domain
+//       that spans hosts;
+//   "refused": {"<NVML call>": code}  the calls NVML refused, each with
+//       its code (null where the library lacks the call); the field a
+//       refused call feeds is null, never a guess. A link NVML calls
+//       INVALID_ARGUMENT is a link the card does not have.
+//
 // Build: tpu_operator_torch.kernels.build.build_host("gpu_telemetry")
 // (the host C++ compiler, -ldl; into build/kernels/ at first use).
 
@@ -50,6 +68,8 @@
 #include <cstdlib>
 #include <cstring>
 #include <string>
+#include <utility>
+#include <vector>
 
 namespace {
 
@@ -66,7 +86,31 @@ struct nvmlUtilization_t {
   unsigned int memory;
 };
 constexpr nvmlReturn_t NVML_SUCCESS = 0;
+constexpr nvmlReturn_t NVML_ERROR_INVALID_ARGUMENT = 2;
+constexpr nvmlReturn_t NVML_ERROR_ARGUMENT_VERSION_MISMATCH = 25;
 constexpr int NVML_TEMPERATURE_GPU = 0;
+constexpr unsigned int NVML_NVLINK_MAX_LINKS = 18;
+constexpr int NVML_FEATURE_ENABLED = 1;
+constexpr int NVML_P2P_CAPS_INDEX_NVLINK = 2;
+constexpr int NVML_P2P_STATUS_OK = 0;
+// nvmlGpuFabricInfo_v2_t and _v3_t share this prefix; v3 appends a
+// healthSummary byte (40 bytes in all, v2 36)
+struct nvmlGpuFabricInfo_t {
+  unsigned int version;
+  unsigned char cluster_uuid[16];
+  nvmlReturn_t status;
+  unsigned int clique_id;
+  unsigned char state;
+  unsigned int health_mask;
+  unsigned char health_summary;
+};
+constexpr unsigned int FabricInfoVersion(unsigned int size, unsigned int v) {
+  return size | (v << 24);
+}
+constexpr unsigned int NVML_GPU_FABRIC_INFO_V3 = FabricInfoVersion(40, 3);
+constexpr unsigned int NVML_GPU_FABRIC_INFO_V2 = FabricInfoVersion(36, 2);
+const char* const FABRIC_STATES[] = {"not_supported", "not_started",
+                                     "in_progress", "completed"};
 
 struct Nvml {
   void* lib = nullptr;
@@ -83,6 +127,11 @@ struct Nvml {
   nvmlReturn_t (*uuid)(nvmlDevice_t, char*, unsigned int) = nullptr;
   nvmlReturn_t (*minor)(nvmlDevice_t, unsigned int*) = nullptr;
   nvmlReturn_t (*name)(nvmlDevice_t, char*, unsigned int) = nullptr;
+  // NVLink facts, resolved when present
+  nvmlReturn_t (*nvlink_state)(nvmlDevice_t, unsigned int, int*) = nullptr;
+  nvmlReturn_t (*nvlink_remote)(nvmlDevice_t, unsigned int, int*) = nullptr;
+  nvmlReturn_t (*p2p)(nvmlDevice_t, nvmlDevice_t, int, int*) = nullptr;
+  nvmlReturn_t (*fabric)(nvmlDevice_t, nvmlGpuFabricInfo_t*) = nullptr;
 };
 
 template <typename F>
@@ -107,6 +156,10 @@ bool Open(Nvml* n, const std::string& path) {
     Sym(n->lib, "nvmlDeviceGetUUID", &n->uuid);
     Sym(n->lib, "nvmlDeviceGetMinorNumber", &n->minor);
     Sym(n->lib, "nvmlDeviceGetName", &n->name);
+    Sym(n->lib, "nvmlDeviceGetNvLinkState", &n->nvlink_state);
+    Sym(n->lib, "nvmlDeviceGetNvLinkRemoteDeviceType", &n->nvlink_remote);
+    Sym(n->lib, "nvmlDeviceGetP2PStatus", &n->p2p);
+    Sym(n->lib, "nvmlDeviceGetGpuFabricInfoV", &n->fabric);
     if (!Sym(n->lib, "nvmlInit_v2", &n->init) ||
         !Sym(n->lib, "nvmlDeviceGetCount_v2", &n->count) ||
         !Sym(n->lib, "nvmlDeviceGetHandleByIndex_v2", &n->handle) ||
@@ -208,6 +261,141 @@ void PrintString(const char* s, bool known) {
   putchar('"');
 }
 
+// the calls NVML refused for one card, as the "refused" object's members
+struct Refusals {
+  std::string json;
+  void Add(const Nvml& n, unsigned int i, const char* call, nvmlReturn_t rc) {
+    Refused(n, i, call, rc);
+    Member(call, std::to_string(rc));
+  }
+  void Absent(const char* call) { Member(call, "null"); }
+  void Member(const char* call, const std::string& value) {
+    if (!json.empty()) json += ", ";
+    json += std::string("\"") + call + "\": " + value;
+  }
+};
+
+const char* RemoteName(int type) {
+  switch (type) {
+    case 0: return "\"gpu\"";
+    case 1: return "\"ibmnpu\"";
+    case 2: return "\"nvswitch\"";
+    default: return "\"unknown\"";
+  }
+}
+
+// "nvlink": the active links and what each reaches, or null
+void PrintNvLinks(const Nvml& n, unsigned int i, nvmlDevice_t dev,
+                  Refusals* refused) {
+  printf(", \"nvlink\": ");
+  if (!n.nvlink_state) {
+    refused->Absent("nvmlDeviceGetNvLinkState");
+    printf("null");
+    return;
+  }
+  std::string links;
+  bool remote_noted = false;  // one refusal of the remote's type a card
+  for (unsigned int link = 0; link < NVML_NVLINK_MAX_LINKS; ++link) {
+    int active = 0;
+    nvmlReturn_t rc = n.nvlink_state(dev, link, &active);
+    if (rc == NVML_ERROR_INVALID_ARGUMENT) continue;  // no such link
+    if (rc != NVML_SUCCESS) {
+      // one refused link makes the list incomplete: report none
+      refused->Add(n, i, "nvmlDeviceGetNvLinkState", rc);
+      printf("null");
+      return;
+    }
+    if (active != NVML_FEATURE_ENABLED) continue;
+    std::string remote = "null";
+    int type = 0;
+    if (!n.nvlink_remote) {
+      if (!remote_noted) refused->Absent("nvmlDeviceGetNvLinkRemoteDeviceType");
+      remote_noted = true;
+    } else if ((rc = n.nvlink_remote(dev, link, &type)) == NVML_SUCCESS) {
+      remote = RemoteName(type);
+    } else {
+      if (!remote_noted) {
+        refused->Add(n, i, "nvmlDeviceGetNvLinkRemoteDeviceType", rc);
+      }
+      remote_noted = true;
+    }
+    if (!links.empty()) links += ", ";
+    links += "{\"link\": " + std::to_string(link) + ", \"remote\": " + remote +
+             "}";
+  }
+  printf("[%s]", links.c_str());
+}
+
+// "nvlink_peers": the other cards NVML reports reachable over NVLink
+void PrintPeers(const Nvml& n, unsigned int i, nvmlDevice_t dev,
+                const std::vector<std::pair<unsigned int, nvmlDevice_t>>& all,
+                Refusals* refused) {
+  printf(", \"nvlink_peers\": ");
+  if (!n.p2p) {
+    refused->Absent("nvmlDeviceGetP2PStatus");
+    printf("null");
+    return;
+  }
+  std::string peers;
+  for (const auto& other : all) {
+    if (other.first == i) continue;
+    int status = -1;
+    nvmlReturn_t rc = n.p2p(dev, other.second, NVML_P2P_CAPS_INDEX_NVLINK,
+                            &status);
+    if (rc != NVML_SUCCESS) {
+      refused->Add(n, i, "nvmlDeviceGetP2PStatus", rc);
+      printf("null");
+      return;
+    }
+    if (status != NVML_P2P_STATUS_OK) continue;
+    if (!peers.empty()) peers += ", ";
+    peers += "\"gpu" + std::to_string(other.first) + "\"";
+  }
+  printf("[%s]", peers.c_str());
+}
+
+// "fabric": the card's NVLink fabric registration, or null
+void PrintFabric(const Nvml& n, unsigned int i, nvmlDevice_t dev,
+                 Refusals* refused) {
+  printf(", \"fabric\": ");
+  if (!n.fabric) {
+    refused->Absent("nvmlDeviceGetGpuFabricInfoV");
+    printf("null");
+    return;
+  }
+  // the newest layout first; a library that predates it names the
+  // mismatch, and the older one is asked
+  nvmlGpuFabricInfo_t info;
+  nvmlReturn_t rc = NVML_ERROR_ARGUMENT_VERSION_MISMATCH;
+  for (unsigned int version :
+       {NVML_GPU_FABRIC_INFO_V3, NVML_GPU_FABRIC_INFO_V2}) {
+    memset(&info, 0, sizeof(info));
+    info.version = version;
+    rc = n.fabric(dev, &info);
+    if (rc != NVML_ERROR_ARGUMENT_VERSION_MISMATCH) break;
+  }
+  if (rc != NVML_SUCCESS) {
+    refused->Add(n, i, "nvmlDeviceGetGpuFabricInfoV", rc);
+    printf("null");
+    return;
+  }
+  char uuid[40];
+  const unsigned char* u = info.cluster_uuid;
+  snprintf(uuid, sizeof(uuid),
+           "%02x%02x%02x%02x-%02x%02x-%02x%02x-%02x%02x-"
+           "%02x%02x%02x%02x%02x%02x",
+           u[0], u[1], u[2], u[3], u[4], u[5], u[6], u[7], u[8], u[9], u[10],
+           u[11], u[12], u[13], u[14], u[15]);
+  printf("{\"cluster_uuid\": \"%s\", \"clique_id\": %u, \"state\": ", uuid,
+         info.clique_id);
+  if (info.state < 4) {
+    printf("\"%s\"", FABRIC_STATES[info.state]);
+  } else {
+    printf("\"state %u\"", info.state);
+  }
+  printf(", \"status\": %d}", info.status);
+}
+
 // the --inventory object; returns the process's exit code
 int Inventory(Nvml* n, const std::string& path) {
   if (!Open(n, path)) return 1;
@@ -224,22 +412,28 @@ int Inventory(Nvml* n, const std::string& path) {
     return 1;
   }
   char buf[256] = {0};
-  rc = n->driver_version(buf, sizeof(buf));
-  if (rc != NVML_SUCCESS) {
+  const nvmlReturn_t driver_rc = n->driver_version(buf, sizeof(buf));
+  if (driver_rc != NVML_SUCCESS) {
     fprintf(stderr, "gpu-telemetry: nvmlSystemGetDriverVersion: %s (%d)\n",
-            n->error_string ? n->error_string(rc) : "error", rc);
+            n->error_string ? n->error_string(driver_rc) : "error",
+            driver_rc);
   }
-  printf("{\"driver_version\": ");
-  PrintString(buf, rc == NVML_SUCCESS);
-  printf(", \"cards\": [");
-  unsigned int seen = 0;
+  std::vector<std::pair<unsigned int, nvmlDevice_t>> devices;
   for (unsigned int i = 0; i < cards; ++i) {
     nvmlDevice_t dev = nullptr;
     if ((rc = n->handle(i, &dev)) != NVML_SUCCESS) {
       Refused(*n, i, "nvmlDeviceGetHandleByIndex_v2", rc);
       continue;
     }
-    if (seen++ > 0) printf(", ");
+    devices.emplace_back(i, dev);
+  }
+  printf("{\"driver_version\": ");
+  PrintString(buf, driver_rc == NVML_SUCCESS);
+  printf(", \"cards\": [");
+  for (size_t k = 0; k < devices.size(); ++k) {
+    const unsigned int i = devices[k].first;
+    nvmlDevice_t dev = devices[k].second;
+    if (k > 0) printf(", ");
     printf("{\"chip_id\": \"gpu%u\", \"index\": %u, \"uuid\": ", i, i);
     char text[256] = {0};
     rc = n->uuid(dev, text, sizeof(text));
@@ -262,7 +456,12 @@ int Inventory(Nvml* n, const std::string& path) {
     if ((rc = n->memory(dev, &mem)) != NVML_SUCCESS) {
       Refused(*n, i, "nvmlDeviceGetMemoryInfo", rc);
     }
-    printf(", \"memory_total_bytes\": %llu}", mem.total);
+    printf(", \"memory_total_bytes\": %llu", mem.total);
+    Refusals refused;
+    PrintNvLinks(*n, i, dev, &refused);
+    PrintPeers(*n, i, dev, devices, &refused);
+    PrintFabric(*n, i, dev, &refused);
+    printf(", \"refused\": {%s}}", refused.json.c_str());
   }
   printf("]}\n");
   fflush(stdout);

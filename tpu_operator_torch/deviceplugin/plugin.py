@@ -47,7 +47,6 @@ API_VERSION = "v1beta1"
 DEFAULT_RESOURCE = L.GPU_RESOURCE
 # the driver's control nodes every CUDA process opens besides its card's
 CONTROL_NODES = ("/dev/nvidiactl", "/dev/nvidia-uvm", "/dev/nvidia-uvm-tools")
-DEFAULT_SLICE_FILE = "/run/nvidia/slice-config.json"
 INVENTORY_TIMEOUT_S = 30.0
 
 _SVC_PLUGIN = "v1beta1.DevicePlugin"
@@ -64,6 +63,23 @@ class DeviceNotFound(LookupError):
 
 
 @dataclass(frozen=True)
+class Fabric:
+    """A card's NVLink fabric registration (nvmlDeviceGetGpuFabricInfoV)."""
+    cluster_uuid: str
+    clique_id: int
+    state: str                 # not_supported|not_started|in_progress|completed
+    status: int                # NVML's code for the registration
+
+    @property
+    def spans_hosts(self) -> bool:
+        """NVML names a cluster: the card's NVLink domain reaches other
+        hosts (a single host's NVSwitch fabric registers with a zero
+        cluster UUID)."""
+        return (self.state == "completed" and self.status == 0
+                and self.cluster_uuid.strip("0-") != "")
+
+
+@dataclass(frozen=True)
 class Card:
     id: str                    # gpu<index>
     index: int                 # NVML's index
@@ -71,6 +87,13 @@ class Card:
     minor: Optional[int]       # /dev/nvidia<minor>
     name: str = ""             # NVML's product name
     memory_total_bytes: int = 0
+    # (link, what it reaches: gpu|ibmnpu|nvswitch|unknown, None where
+    # refused) of each active NVLink; None where NVML refused the links
+    nvlink: Optional[Tuple[Tuple[int, Optional[str]], ...]] = None
+    nvlink_peers: Optional[Tuple[str, ...]] = None  # cards over NVLink
+    fabric: Optional[Fabric] = None
+    # (NVML call, its code; None where the library lacks the call)
+    refused: Tuple[Tuple[str, Optional[int]], ...] = ()
 
 
 @dataclass(frozen=True)
@@ -105,20 +128,46 @@ def nvml_inventory() -> Inventory:
                     out.returncode, out.stderr.strip()[-500:])
         return Inventory()
     doc = json.loads(out.stdout)
-    cards = tuple(Card(c["chip_id"], int(c["index"]), c.get("uuid"),
-                       c.get("minor"), c.get("name") or "",
-                       int(c.get("memory_total_bytes") or 0))
-                  for c in doc.get("cards", []))
-    return Inventory(cards, doc.get("driver_version") or "")
+    return Inventory(tuple(map(_card_of, doc.get("cards", []))),
+                     doc.get("driver_version") or "")
+
+
+def _card_of(c: dict) -> Card:
+    """One card of ``gpu-telemetry --inventory``'s JSON."""
+    links = c.get("nvlink")
+    peers = c.get("nvlink_peers")
+    fabric = c.get("fabric")
+    return Card(
+        c["chip_id"], int(c["index"]), c.get("uuid"), c.get("minor"),
+        c.get("name") or "", int(c.get("memory_total_bytes") or 0),
+        nvlink=None if links is None else tuple(
+            (int(ln["link"]), ln.get("remote")) for ln in links),
+        nvlink_peers=None if peers is None else tuple(peers),
+        fabric=None if fabric is None else Fabric(
+            fabric["cluster_uuid"], int(fabric["clique_id"]),
+            fabric["state"], int(fabric["status"])),
+        refused=tuple((c.get("refused") or {}).items()))
+
+
+FAKE_NVLINKS = 18  # an H100 SXM's links, each to an NVSwitch
 
 
 def card_inventory() -> Inventory:
     """GPU_FAKE_CHIPS=N (tests, fake clusters: gpu0..gpuN-1, fake UUIDs,
-    minor = index), else NVML."""
+    minor = index, an HGX node's NVLink facts: every link to an NVSwitch,
+    every other card a peer, a single-host fabric), else NVML."""
     fake = os.environ.get("GPU_FAKE_CHIPS")
     if fake:
-        return Inventory(tuple(Card(f"gpu{i}", i, fake_uuid(i), i)
-                               for i in range(int(fake))))
+        n = int(fake)
+        ids = [f"gpu{i}" for i in range(n)]
+        fabric = Fabric("00000000-0000-0000-0000-000000000000", 0,
+                        "completed", 0)
+        return Inventory(tuple(
+            Card(ids[i], i, fake_uuid(i), i,
+                 nvlink=tuple((ln, "nvswitch") for ln in range(FAKE_NVLINKS)),
+                 nvlink_peers=tuple(c for c in ids if c != ids[i]),
+                 fabric=fabric)
+            for i in range(n)))
     return nvml_inventory()
 
 
@@ -216,17 +265,11 @@ def read_plugin_config(config_dir: str, name: str) -> PluginConfig:
         return parse_plugin_config(name, f.read())
 
 
-def read_slice_file(path: str = DEFAULT_SLICE_FILE) -> Optional[dict]:
-    try:
-        with open(path) as f:
-            return json.load(f)
-    except (OSError, json.JSONDecodeError):
-        return None
-
-
 def slice_groups() -> Optional[Dict[str, List[str]]]:
-    """slice-unit ID -> member card IDs, from the slice file
-    (GPU_SLICE_FILE; its writer comes with the topology manager)."""
+    """slice-unit ID -> member card IDs, from the topology manager's slice
+    file (GPU_SLICE_FILE)."""
+    from ..topology.manager import DEFAULT_SLICE_FILE, read_slice_file
+
     cfg = read_slice_file(os.environ.get("GPU_SLICE_FILE",
                                          DEFAULT_SLICE_FILE))
     if not cfg or not cfg.get("groups"):

@@ -2,8 +2,9 @@
 
 Counterpart of ``tpu_operator/featurediscovery/agent.py``. The agent
 reads the cards present (NVML, through the device plugin's inventory)
-and stamps ``gpu.graft.dev/*`` property labels, so a scheduler can
-select by product, memory and link class without cloud-specific keys.
+and stamps ``gpu.graft.dev/*`` property labels, so a scheduler and the
+topology manager can select by product, memory, link class and fabric
+without cloud-specific keys.
 
 Ownership: the operator owns the presence and deploy labels; this agent
 owns only ``labels.FEATURE_LABELS`` and removes one whose property is
@@ -38,17 +39,25 @@ def compute_feature_labels(node_labels: Dict[str, str],
 
     ``inventory`` is ``deviceplugin.plugin.Inventory``. The product is
     GKE's accelerator label where the node has one, else NVML's name of
-    its first card; memory and link rate come from the hardware table
+    its first card; the topology is ``GPU_TOPOLOGY`` where set, else the
+    fabric NVML reports (``state.nodepool.topology_of``), and multihost
+    is its pool's; memory and link rate come from the hardware table
     keyed by the product; the driver version is NVML's.
     """
+    from ..state.nodepool import NodePool, topology_of
     from ..workloads.hardware import chip_spec_for
 
     want: Dict[str, Optional[str]] = {}
     names = [c.name for c in inventory.cards if c.name]
     product = label_value(node_labels.get(L.GKE_ACCELERATOR, "")
                           or (names[0] if names else ""))
+    topo = os.environ.get("GPU_TOPOLOGY") or topology_of(inventory)
     if product:
         want[L.GPU_PRODUCT] = product
+    if topo:
+        want[L.GPU_TOPOLOGY] = topo
+        want[L.GPU_MULTIHOST] = str(
+            NodePool(product=product, topology=topo).multi_host).lower()
     spec = chip_spec_for(product)
     if spec is not None:
         want[L.GPU_MEMORY_GB] = str(int(spec.hbm_gb))

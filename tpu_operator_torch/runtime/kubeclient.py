@@ -3,7 +3,7 @@
 Counterpart of the parts of ``tpu_operator/runtime/kubeclient.py`` (an
 HTTPS client over ``requests``, every verb, watches and retries) that the
 pod proofs and the node agents reach: get, create and delete a pod; get
-a node (whole, or its metadata alone) and merge-patch it. It runs
+a node (whole, or its metadata alone), list nodes and merge-patch one. It runs
 inside a pod on the service account's token and CA and the
 ``KUBERNETES_SERVICE_HOST``/``_PORT`` contract, over ``urllib``.
 
@@ -18,8 +18,9 @@ import json
 import os
 import ssl
 import urllib.error
+import urllib.parse
 import urllib.request
-from typing import Optional
+from typing import List, Mapping, Optional
 
 SA_DIR = "/var/run/secrets/kubernetes.io/serviceaccount"
 REQUEST_TIMEOUT_S = 30.0
@@ -44,8 +45,8 @@ class NotFoundError(ApiError):
 
 
 class InClusterClient:
-    """``get``/``get_or_none``/``create``/``delete`` of pods, ``get`` and
-    ``patch`` of nodes. ``server`` is the apiserver's base URL; the bearer
+    """``get``/``get_or_none``/``create``/``delete`` of pods, ``get``,
+    ``list`` and ``patch`` of nodes. ``server`` is the apiserver's base URL; the bearer
     token is read from ``token_file`` on every request (bound service-account
     tokens rotate), and ``ca_file`` verifies an https server."""
 
@@ -135,6 +136,17 @@ class InClusterClient:
             return self.get(api_version, kind, name, namespace)
         except NotFoundError:
             return None
+
+    def list(self, api_version: str, kind: str,
+             label_selector: Optional[Mapping[str, str]] = None,
+             namespace: Optional[str] = None) -> List[dict]:
+        """The collection's ``items``; ``label_selector`` is matchLabels
+        (``{key: value}``), sent as the apiserver's ``labelSelector``."""
+        url = self._url(api_version, kind, None, namespace)
+        if label_selector:
+            url += "?" + urllib.parse.urlencode({"labelSelector": ",".join(
+                f"{k}={v}" for k, v in label_selector.items())})
+        return self._request("GET", url, f"list {kind}").get("items") or []
 
     def create(self, obj: dict) -> dict:
         meta = obj.get("metadata", {})
