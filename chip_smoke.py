@@ -16,7 +16,9 @@ conv burn-in run over every visible card. The node's status exporter,
 the CUDA validation pod's payload, chip telemetry over NVML and the
 forward entry point run on the card, the node's allocation plane hands
 the card to child processes, and the topology manager groups the cards
-behind the device plugin. Phases, each fatal:
+behind the device plugin. The operator's reconcile renders the validator
+DaemonSet, whose init containers run on the card as processes. Phases,
+each fatal:
 
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
 2. build the hand-written kernels from the checkout's sources, one nvcc
@@ -97,6 +99,25 @@ F. the topology manager, against the stub apiserver (now also listing
    one alone) seeing its two cards alone by UUID and running phase 13's
    all-reduce step over them, correct, with bus GB/s. No kernel launches
    in it;
+G. the operator's reconcile path on the port's FakeClient: a GPU node
+   built from the card (feature discovery's NVML labels, GKE's
+   nvidia-h100-80gb, the cards allocatable) beside a CPU node, and a
+   GPUClusterPolicy whose nvlinkBandwidthThreshold is NVLINK_THRESHOLD.
+   The first pass is notReady with a 5 s requeue, stamps present,
+   gpu.generation, gpu.chips and the deploy labels on the GPU node alone,
+   and applies every enabled state's objects. The device plugin's
+   rendered wait, cut to 2 s, fails; the rendered validator DaemonSet's
+   init containers then run in order, each its command's
+   [project.scripts] target with its rendered args and env as a process
+   (only the volume mounts stood in for: GPU_VALIDATION_DIR, HOST_ROOT=/,
+   and the stub apiserver for the service account), each exiting 0 and
+   writing its barrier file; plugin-validation's pod is played by the
+   stub apiserver as a process; dcn-validation records the single-node
+   skip; hbm-validation's child launches the triad. Every operand's
+   rendered wait then passes; with the kubelet simulated the policy is
+   ready (Ready=True, clusterInfo, the gpu_nodes and gpu_chips gauges), a
+   steady pass writes nothing, and disabling the metrics exporter removes
+   its DaemonSet. ms per pass and per state, seconds per container;
 14. print the kernel table as one JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``; on any failure the
@@ -1245,16 +1266,23 @@ class StubApiserver:
     """Nodes over HTTP on 127.0.0.1: GET of one (whole, or its metadata
     under the PartialObjectMetadata Accept), GET of the collection, and
     merge-PATCH; records each request's method, Accept and Content-Type.
-    ``node`` is the first node, the one the agents run on."""
+    ``node`` is the first node, the one the agents run on. Pods: POST,
+    GET and DELETE of one, each created pod played by ``play_pod``."""
 
-    def __init__(self, node_name: str, labels: dict):
+    def __init__(self, node_name: str, labels: dict,
+                 allocatable: dict | None = None, play_pod=None):
         from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
         self.nodes = {}
         self.node_name = node_name
-        self.add_node(node_name, labels)
+        self.add_node(node_name, labels, allocatable)
         self.requests = []
+        # pods by (namespace, name); ``play_pod(pod) -> phase`` plays a
+        # created pod in a thread (phase G), else it stays Pending
+        self.pods = {}
+        self.play_pod = play_pod
         prefix = "/api/v1/nodes"
+        pods = re.compile(r"^/api/v1/namespaces/([^/]+)/pods(?:/([^/?]+))?$")
         stub = self
 
         class Handler(BaseHTTPRequestHandler):
@@ -1275,6 +1303,12 @@ class StubApiserver:
             def do_GET(self):
                 accept = self.headers.get("Accept", "")
                 stub.requests.append(("GET", accept, ""))
+                m = pods.match(self.path)
+                if m and m.group(2):
+                    pod = stub.pods.get((m.group(1), m.group(2)))
+                    if pod is None:
+                        return self._answer(404, {"reason": "NotFound"})
+                    return self._answer(200, pod)
                 if self.path == prefix:
                     return self._answer(200, {
                         "apiVersion": "v1", "kind": "NodeList",
@@ -1302,6 +1336,32 @@ class StubApiserver:
                 merge_patch(node, body)
                 self._answer(200, node)
 
+            def do_POST(self):
+                body = json.loads(self.rfile.read(
+                    int(self.headers["Content-Length"])))
+                stub.requests.append(("POST", "", self.path))
+                m = pods.match(self.path)
+                if not m or m.group(2):
+                    return self._answer(404, {"reason": "NotFound"})
+                key = (m.group(1), body["metadata"]["name"])
+                if key in stub.pods:
+                    return self._answer(409, {"reason": "AlreadyExists"})
+                body["metadata"]["namespace"] = m.group(1)
+                body["status"] = {"phase": "Pending"}
+                stub.pods[key] = body
+                if stub.play_pod is not None:
+                    threading.Thread(target=stub._play, args=(key, body),
+                                     daemon=True).start()
+                self._answer(201, body)
+
+            def do_DELETE(self):
+                stub.requests.append(("DELETE", "", self.path))
+                m = pods.match(self.path)
+                if not m or not m.group(2) or \
+                        stub.pods.pop((m.group(1), m.group(2)), None) is None:
+                    return self._answer(404, {"reason": "NotFound"})
+                self._answer(200, {"status": "Success"})
+
             def log_message(self, *args):
                 pass
 
@@ -1317,6 +1377,12 @@ class StubApiserver:
             "metadata": {"name": name, "labels": dict(labels)},
             "status": {"capacity": dict(allocatable or {}),
                        "allocatable": dict(allocatable or {})}}
+
+    def _play(self, key, pod: dict) -> None:
+        pod["status"] = {"phase": "Running"}
+        phase = self.play_pod(pod)
+        if key in self.pods:
+            pod["status"] = {"phase": phase}
 
     @property
     def node(self) -> dict:
@@ -2119,6 +2185,355 @@ def topology_phase(torch, card: str) -> dict:
     return out
 
 
+# phase G: the operator's reconcile path. The port's GPUClusterPolicy is
+# reconciled on its in-memory FakeClient over a node built from the real
+# card, and the validator DaemonSet it renders is played on the card: each
+# init container's command (resolved through pyproject.toml's
+# [project.scripts]), args and env, in order, as its own process. Only the
+# pod's volume mounts are stood in for.
+RECONCILE_NODE = "smoke-node"
+RECONCILE_NAMESPACE = "gpu-operator"
+# a container's process: far under the validator's own pod wait (60 x 5 s)
+RECONCILE_CHILD_TIMEOUT_S = 300
+# the device plugin's wait, cut from its 300 s so the closed gate shows
+WAIT_CUT_TIMEOUT_S = 2
+# runs a [project.scripts] target as its console script would, and prints
+# the kernel counts of its process as the last line
+SCRIPT_LAUNCHER = """
+import importlib, json, os, sys
+target, argv0 = sys.argv[1], sys.argv[2]
+sys.argv = [argv0] + sys.argv[3:]
+url = os.environ.pop("SMOKE_APISERVER", "")
+if url:
+    # stand-in for the pod's service-account mount and the kubelet's
+    # KUBERNETES_SERVICE_* env: the in-cluster client reaches the stub
+    from tpu_operator_torch.runtime import kubeclient
+    kubeclient.InClusterClient.from_env = classmethod(
+        lambda cls, sa_dir=None: cls(url, namespace=os.environ.get(
+            "OPERATOR_NAMESPACE", "default")))
+module, attr = target.split(":")
+rc = 1
+try:
+    rc = getattr(importlib.import_module(module), attr)()
+finally:
+    hbm = sys.modules.get("tpu_operator_torch.workloads.hbm_probe")
+    print(json.dumps({"rc": rc, "triad_launches":
+                      hbm.triad_.launches if hbm else 0}), flush=True)
+sys.exit(rc)
+"""
+# the base env of a container: what an image and the container toolkit
+# give a process, never the validator's own knobs from this script's env
+CONTAINER_BASE_ENV = ("PATH", "HOME", "TMPDIR", "LANG", "LC_ALL",
+                      "LD_LIBRARY_PATH", "CUDA_HOME")
+
+
+def project_scripts() -> dict:
+    import tomllib
+
+    with open("pyproject.toml", "rb") as f:
+        return tomllib.load(f)["project"]["scripts"]
+
+
+def rendered_env(ctr: dict, node_name: str, namespace: str) -> dict:
+    """A container's rendered env as the kubelet resolves it: a value, or
+    a fieldRef to the pod's node or namespace."""
+    out = {}
+    for var in ctr.get("env") or []:
+        if "value" in var:
+            out[var["name"]] = str(var["value"])
+            continue
+        path = var["valueFrom"]["fieldRef"]["fieldPath"]
+        out[var["name"]] = {"spec.nodeName": node_name,
+                            "metadata.namespace": namespace}[path]
+    return out
+
+
+def container_process(ctr: dict, scripts: dict, env: dict,
+                      extra_args=()) -> dict:
+    """Run one container's command and args as a process from the
+    checkout's root; rc, seconds and the launcher's last line."""
+    cmd = ctr["command"]
+    target = scripts.get(cmd[0])
+    if target is None or not target.startswith("tpu_operator_torch."):
+        raise RuntimeError(f"container {ctr['name']}: command {cmd[0]!r} "
+                           f"names no port agent in [project.scripts]")
+    argv = [sys.executable, "-c", SCRIPT_LAUNCHER, target, cmd[0],
+            *cmd[1:], *(ctr.get("args") or []), *extra_args]
+    t0 = time.perf_counter()
+    out = subprocess.run(argv, env=env, capture_output=True, text=True,
+                         timeout=RECONCILE_CHILD_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    last = {}
+    for line in reversed(out.stdout.strip().splitlines()):
+        if line.startswith("{"):
+            last = json.loads(line)
+            break
+    return {"rc": out.returncode, "seconds": secs, "target": target,
+            "triad_launches": last.get("triad_launches", 0),
+            "stderr_tail": out.stderr[-1500:]}
+
+
+def daemonset(client, name: str) -> dict:
+    return client.get("apps/v1", "DaemonSet", name, RECONCILE_NAMESPACE)
+
+
+def play_pod(env: dict, runs: list):
+    """The stub apiserver's kubelet: a created pod's first container's
+    command and env run as a process; its exit code gives the phase."""
+    def play(pod: dict) -> str:
+        ctr = pod["spec"]["containers"][0]
+        penv = dict(env, **{e["name"]: e["value"]
+                            for e in ctr.get("env") or []})
+        t0 = time.perf_counter()
+        out = subprocess.run(ctr["command"], env=penv, capture_output=True,
+                             text=True, timeout=RECONCILE_CHILD_TIMEOUT_S)
+        runs.append({"pod": pod["metadata"]["name"], "command":
+                     ctr["command"], "rc": out.returncode,
+                     "seconds": time.perf_counter() - t0,
+                     "stdout_tail": out.stdout[-300:]})
+        return "Succeeded" if out.returncode == 0 else "Failed"
+    return play
+
+
+def reconcile_phase(torch, card: str, extra_env: dict | None = None,
+                    matmul_size: int = MATMUL_SIZE) -> dict:
+    """Phase G: the operator's reconcile path. A GPU node built from the
+    real card (feature discovery's NVML labels, GKE's accelerator label,
+    the allocatable cards) and a CPU node on the port's FakeClient; a
+    GPUClusterPolicy whose NVLink gate is this run's NVLINK_THRESHOLD.
+    The first pass is notReady (5 s) with the node labelled and every
+    enabled state's objects applied; the device plugin's rendered wait
+    fails; the rendered validator DaemonSet's init containers run in
+    order on the card, each exiting 0 and writing its barrier file
+    (plugin-validation against a stub apiserver that plays its pod); every
+    operand's rendered wait then passes; with the kubelet simulated the
+    policy is ready, a steady pass writes nothing, and disabling the
+    metrics exporter removes its DaemonSet. ``extra_env`` and
+    ``matmul_size`` serve a rehearsal on the CPU only."""
+    from tpu_operator_torch.api import labels as L
+    from tpu_operator_torch.api.clusterpolicy import (
+        KIND_CLUSTER_POLICY, V1, GPUClusterPolicySpec, new_cluster_policy)
+    from tpu_operator_torch.api.conditions import COND_READY, get_condition
+    from tpu_operator_torch.controllers.clusterpolicy_controller import (
+        ClusterPolicyReconciler)
+    from tpu_operator_torch.featurediscovery import FeatureDiscovery
+    from tpu_operator_torch.metrics.registry import render_prometheus
+    from tpu_operator_torch.runtime.fake import FakeClient
+    from tpu_operator_torch.runtime.manager import Request
+    from tpu_operator_torch.runtime.objects import is_namespaced, thaw_obj
+    from tpu_operator_torch.state.operands import build_states
+    from tpu_operator_torch.state.state import SyncContext
+    from tpu_operator_torch.validator import barrier
+
+    n_cards = torch.cuda.device_count() if extra_env is None else 1
+    threshold = float(os.environ.get("NVLINK_THRESHOLD", "0.8"))
+    scripts = project_scripts()
+    figures = {"card": card, "nvlink_threshold": threshold}
+    ms = {}
+
+    # G1. the node, from the card
+    client = FakeClient()
+    client.add_node(RECONCILE_NODE, labels={
+        L.GKE_ACCELERATOR: "nvidia-h100-80gb"},
+        allocatable={L.GPU_RESOURCE: str(n_cards)})
+    client.add_node("cpu-node")
+    FeatureDiscovery(client, RECONCILE_NODE).apply_once()
+    client.create(new_cluster_policy(spec={"validator": {
+        "nvlinkBandwidthThreshold": threshold, "matmulSize": matmul_size}}))
+    rec = ClusterPolicyReconciler(client=client,
+                                  namespace=RECONCILE_NAMESPACE)
+    req = Request(name="gpu-cluster-policy")
+
+    def reconcile(label):
+        t0 = time.perf_counter()
+        result = rec.reconcile(req)
+        ms[label] = (time.perf_counter() - t0) * 1e3
+        cr = client.get(V1, KIND_CLUSTER_POLICY, req.name)
+        return result, cr
+
+    # G2. the first pass
+    result, cr = reconcile("first_pass")
+    gpu = client.get("v1", "Node", RECONCILE_NODE)["metadata"]["labels"]
+    cpu = client.get("v1", "Node", "cpu-node")["metadata"]["labels"]
+    dss = sorted(d["metadata"]["name"]
+                 for d in client.list("apps/v1", "DaemonSet"))
+    log(f"  first pass in {ms['first_pass']!r} ms ({card}): state "
+        f"{cr['status']['state']}, requeue {result.requeue_after} s; "
+        f"DaemonSets {dss}")
+    log(f"  GPU node labels: {gpu}")
+    deploy = {L.deploy_label(st) for st in L.CONTAINER_WORKLOAD_STATES}
+    if cr["status"]["state"] != "notReady" or result.requeue_after != 5.0:
+        raise RuntimeError(f"first pass: {cr['status']}, {result}")
+    if gpu.get(L.PRESENT) != "true" or \
+            gpu.get(L.GPU_GENERATION) != "h100-sxm" or \
+            gpu.get(L.GPU_CHIP_COUNT) != str(n_cards) or \
+            not deploy <= {k for k, v in gpu.items() if v == "true"}:
+        raise RuntimeError(f"the GPU node's labels are wrong: {gpu}")
+    if any(k.startswith(L.DOMAIN) for k in cpu):
+        raise RuntimeError(f"the CPU node was labelled: {cpu}")
+    ctx_objects = {}
+    ctx = SyncContext(client=client, policy=cr,
+                      spec=GPUClusterPolicySpec.from_obj(cr),
+                      namespace=RECONCILE_NAMESPACE)
+    for state in build_states():
+        if not state.enabled(ctx):
+            continue
+        for obj in state.render(ctx):
+            ns = RECONCILE_NAMESPACE if is_namespaced(obj["kind"]) else None
+            if client.get_or_none(obj["apiVersion"], obj["kind"],
+                                  obj["metadata"]["name"], ns) is None:
+                raise RuntimeError(f"state {state.name}: {obj['kind']}/"
+                                   f"{obj['metadata']['name']} missing")
+            ctx_objects[state.name] = ctx_objects.get(state.name, 0) + 1
+    log(f"  objects applied per enabled state: {ctx_objects}")
+    figures["daemonsets"] = dss
+
+    # G3/G4. the rendered validator pod on the card, gated
+    validator = daemonset(client, "gpu-operator-validator")
+    pod = validator["spec"]["template"]["spec"]
+    mounts = {v["name"]: v for v in pod["volumes"]}
+    valdir = tempfile.mkdtemp(prefix="gpu-reconcile-validations-")
+    stand_ins = {"GPU_VALIDATION_DIR": valdir, "HOST_ROOT": "/"}
+    log(f"  stand-ins for the pod's volume mounts: validations "
+        f"(hostPath {mounts['validations']['hostPath']['path']}) -> "
+        f"GPU_VALIDATION_DIR={valdir}; host-root (hostPath "
+        f"{mounts['host-root']['hostPath']['path']} at /host) -> "
+        f"HOST_ROOT=/; the service account -> the stub apiserver")
+    base = {k: os.environ[k] for k in CONTAINER_BASE_ENV if k in os.environ}
+    base.update({k: v for k, v in os.environ.items()
+                 if k.startswith(("NVIDIA_", "CUDA_"))})
+    base.update(extra_env or {})
+    base["PYTHONPATH"] = os.getcwd()
+    pod_runs = []
+    api = StubApiserver(RECONCILE_NODE, {}, allocatable={
+        L.GPU_RESOURCE: str(n_cards)}, play_pod=play_pod(base, pod_runs))
+    containers = {}
+    chain_t0 = time.perf_counter()
+    try:
+        for ctr in pod["initContainers"] + pod["containers"]:
+            for m in ctr.get("volumeMounts") or []:
+                if m["name"] == "validations" and \
+                        m["mountPath"] != barrier.DEFAULT_DIR:
+                    raise RuntimeError(f"{ctr['name']} mounts the "
+                                       f"validations at {m['mountPath']}, "
+                                       f"not the validator's default dir")
+
+        def waits(label, cut=False):
+            """Every operand's rendered wait init container, at once."""
+            jobs = []
+            for ds in client.list("apps/v1", "DaemonSet"):
+                for ctr in ds["spec"]["template"]["spec"].get(
+                        "initContainers") or []:
+                    if (ctr.get("args") or [None])[0] != "wait":
+                        continue
+                    if cut and ds["metadata"]["name"] != \
+                            "gpu-device-plugin-daemonset":
+                        continue
+                    env = {**base, **rendered_env(
+                        ctr, RECONCILE_NODE, RECONCILE_NAMESPACE),
+                        **stand_ins}
+                    extra = ("--timeout", str(WAIT_CUT_TIMEOUT_S)) \
+                        if cut else ()
+                    jobs.append((ds["metadata"]["name"], ctr, env, extra))
+            with concurrent.futures.ThreadPoolExecutor(len(jobs)) as ex:
+                outs = list(ex.map(lambda j: container_process(
+                    j[1], scripts, j[2], j[3]), jobs))
+            res = {f"{j[0]}/{j[1]['name']} {' '.join(j[1]['args'])}":
+                   (o["rc"], round(o["seconds"], 3))
+                   for j, o in zip(jobs, outs)}
+            log(f"  {label}: {res}")
+            return res
+
+        before = waits("the device plugin's wait before the chain, cut "
+                       f"to {WAIT_CUT_TIMEOUT_S} s", cut=True)
+        if not before or any(rc == 0 for rc, _ in before.values()):
+            raise RuntimeError(f"a wait passed before the chain: {before}")
+        for ctr in pod["initContainers"]:
+            env = {**base, **rendered_env(ctr, RECONCILE_NODE,
+                                          RECONCILE_NAMESPACE),
+                   **stand_ins}
+            if ctr["name"] == "plugin-validation":
+                env["SMOKE_APISERVER"] = api.url
+            shown = {k: v for k, v in env.items() if k not in base}
+            res = container_process(ctr, scripts, env)
+            status = ctr["args"][1] + "-ready"
+            with environ(GPU_VALIDATION_DIR=valdir):
+                info = barrier.read_status(status)
+            res["barrier"] = info
+            log(f"  {ctr['name']}: {ctr['command'] + ctr['args']} -> "
+                f"{res['target']}, env {shown}: rc={res['rc']} in "
+                f"{res['seconds']:.3f}s ({card}), {status}: {info}")
+            if res["rc"] != 0 or info is None:
+                raise RuntimeError(f"{ctr['name']} failed (rc={res['rc']}, "
+                                   f"{status} {info}): {res['stderr_tail']}")
+            res.pop("stderr_tail")
+            containers[ctr["name"]] = res
+        chain_s = time.perf_counter() - chain_t0
+        after = waits("every operand's wait after the chain")
+        if any(rc != 0 for rc, _ in after.values()):
+            raise RuntimeError(f"a wait failed after the chain: {after}")
+    finally:
+        api.stop()
+        shutil.rmtree(valdir, ignore_errors=True)
+    log(f"  the plugin pod as the stub played it: {pod_runs}")
+    if not containers["dcn-validation"]["barrier"].get("SKIPPED"):
+        raise RuntimeError("dcn-validation did not record the single-node "
+                           "skip")
+    hbm = containers["hbm-validation"]
+    if hbm["triad_launches"] == 0:
+        raise RuntimeError("hbm-validation did not launch the triad kernel")
+
+    # G5. ready, steady, an operand disabled
+    client.simulate_kubelet(ready=True)
+    result, cr = reconcile("ready_pass")
+    ready = get_condition(cr, COND_READY)
+    gauges = prom_series(render_prometheus())
+    nodes_gauge = gauges.get(("gpu_operator_gpu_nodes_total", ()))
+    cards_gauge = gauges.get(("gpu_operator_gpu_chips_total", ()))
+    log(f"  ready pass in {ms['ready_pass']!r} ms ({card}): state "
+        f"{cr['status']['state']}, Ready {ready}, clusterInfo "
+        f"{cr['status'].get('clusterInfo')}; gpu_nodes {nodes_gauge}, "
+        f"gpu_chips {cards_gauge}")
+    if cr["status"]["state"] != "ready" or ready["status"] != "True" or \
+            not cr["status"].get("clusterInfo") or nodes_gauge != 1.0 or \
+            cards_gauge != float(n_cards):
+        raise RuntimeError(f"the policy is not ready: {cr['status']}")
+    client.reset_verb_counts()
+    result, cr = reconcile("steady_pass")
+    verbs = client.reset_verb_counts()
+    writes = {v: n for v, n in verbs.items()
+              if v in ("create", "update", "update_status", "patch",
+                       "delete")}
+    log(f"  steady pass in {ms['steady_pass']!r} ms ({card}): verbs "
+        f"{verbs}")
+    if writes or cr["status"]["state"] != "ready":
+        raise RuntimeError(f"the steady pass wrote {writes}")
+    per_state = {dict(labels)["state"]: v * 1e3
+                 for (name, labels), v in gauges.items()
+                 if name == "gpu_operator_operand_sync_duration_seconds"}
+    log(f"  ms per state in the ready pass (operand_sync_duration, "
+        f"{card}): {per_state}")
+    spec = thaw_obj(client.get(V1, KIND_CLUSTER_POLICY, req.name))
+    spec["spec"]["metricsExporter"] = {"enabled": False}
+    client.update(spec)
+    reconcile("disable_pass")
+    left = client.get_or_none("apps/v1", "DaemonSet", "gpu-metrics-exporter",
+                              RECONCILE_NAMESPACE)
+    log(f"  metrics exporter disabled: its DaemonSet "
+        f"{'remains' if left else 'removed'} ({ms['disable_pass']!r} ms)")
+    if left is not None:
+        raise RuntimeError("disabling the metrics exporter left its "
+                           "DaemonSet")
+    figures.update({"ms": ms, "ms_per_state": per_state,
+                    "containers": containers, "chain_wall_s": chain_s,
+                    "plugin_pod": pod_runs,
+                    "triad_launches": hbm["triad_launches"],
+                    "waits_before": before, "waits_after": after})
+    log(f"  validator chain as the operator waits on it: {chain_s:.3f} s "
+        f"wall ({card})")
+    return figures
+
+
 def main() -> int:
     import torch
 
@@ -2377,6 +2792,25 @@ def main() -> int:
         raise RuntimeError("the topology manager launched a kernel")
     log(json.dumps({"topology_manager": topo}))
 
+    # G: the operator's reconcile path. Its own modules launch no kernel;
+    # the validator pod it renders runs the triad in its hbm-validation
+    # child, whose launcher reports that process's count
+    hbm_probe.triad_.launches = 0
+    fa.flash_attention_blocks.launches = 0
+    log("# phase G: the operator's reconcile path (GPUClusterPolicy, the "
+        "state manager's DAG, the rendered validator DaemonSet on the card)")
+    torch.cuda.empty_cache()
+    reconcile = reconcile_phase(torch, card)
+    reconcile["launches_in_process"] = {
+        "triad": hbm_probe.triad_.launches,
+        "flash_attention": fa.flash_attention_blocks.launches}
+    log(f"  kernel launches in phase G: triad {reconcile['triad_launches']} "
+        f"in the hbm-validation child; in this process "
+        f"{reconcile['launches_in_process']}")
+    if any(reconcile["launches_in_process"].values()):
+        raise RuntimeError("the reconcile launched a kernel in this process")
+    log(json.dumps({"reconcile": reconcile}))
+
     # 14. the kernel table
     kernels = [{
         "name": "triad",
@@ -2384,6 +2818,7 @@ def main() -> int:
         "source": "tpu_operator_torch/csrc/triad.cu",
         "replaces": "tpu_operator/workloads/pallas_probe.py:30",
         "launches": triad_launches,
+        "launches_phase_g_child": reconcile["triad_launches"],
         "max_abs_err": triad_err,
         "tolerance": TRIAD_TOLERANCE,
         "ms": kernel_ms,

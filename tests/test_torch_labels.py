@@ -83,6 +83,18 @@ CONSTANTS = [
     ("TPU_ISOLATED_RESOURCE", "GPU_ISOLATED_RESOURCE"),
     ("VTPU_RESOURCE", "VGPU_RESOURCE"),
     ("DEFAULT_VALIDATION_DIR", "DEFAULT_VALIDATION_DIR"),
+    # the reconcile path's (the state manager, the skel, the upgrade
+    # opt-in, Pod Security Admission)
+    ("TPU_PRESENT", "PRESENT"),
+    ("TPU_GENERATION", "GPU_GENERATION"),
+    ("GKE_ACCELERATOR_COUNT", "GKE_ACCELERATOR_COUNT"),
+    ("LAST_APPLIED_HASH", "LAST_APPLIED_HASH"),
+    ("SPEC_HASH", "SPEC_HASH"),
+    ("STATE_LABEL", "STATE_LABEL"),
+    ("UPGRADE_STATE", "UPGRADE_STATE"),
+    ("DRIVER_UPGRADE_ENABLED", "DRIVER_UPGRADE_ENABLED"),
+    ("PSA_LABEL_PREFIX", "PSA_LABEL_PREFIX"),
+    ("PSA_LEVEL_PRIVILEGED", "PSA_LEVEL_PRIVILEGED"),
 ]
 
 
@@ -152,3 +164,25 @@ def test_health_engine_constants():
             he.HBM_WARN_FRACTION, he.DIGEST_SCHEMA_VERSION) == (
         rhe.DEFAULT_PORT, rhe.TEMP_WARN_C, rhe.TEMP_FAIL_C,
         rhe.HBM_WARN_FRACTION, rhe.DIGEST_SCHEMA_VERSION)
+
+
+def test_reconcile_path_tuples():
+    assert L.PSA_MODES == RL.PSA_MODES
+    assert L.ALL_DEPLOY_STATES == tuple(rename_state(st)
+                                        for st in RL.ALL_DEPLOY_STATES)
+
+
+# GKE's accelerator label values -> the hardware table's keys; the
+# reference maps GKE's TPU accelerator to a TPU generation the same way
+GENERATIONS = {"nvidia-h100-80gb": "h100-sxm",
+               "nvidia-h100-mega-80gb": "h100-sxm",
+               "nvidia-a100-80gb": "", "tpu-v5p-slice": "", "": ""}
+
+
+@pytest.mark.parametrize("value", sorted(GENERATIONS))
+def test_accelerator_generation(value):
+    from tpu_operator_torch.workloads.hardware import CHIPS
+
+    got = L.accelerator_generation(value)
+    assert got == GENERATIONS[value]
+    assert got == "" or got in CHIPS

@@ -19,9 +19,17 @@ Package map:
 - ``validator/``  barrier files, the validation components, the workload
                   pod proofs and the node-status exporter
 - ``metrics/``    per-card telemetry (NVML through ``csrc/gpu_telemetry.cc``)
-                  as Prometheus gauges
-- ``runtime/``    a small in-cluster Kubernetes client for the pod proofs
-- ``api/``        resource names (``nvidia.com/gpu``)
+                  as Prometheus gauges; the operator's own metrics
+- ``runtime/``    the client contract, an in-memory fake apiserver, and a
+                  small in-cluster client for the pod proofs and agents
+- ``api/``        the GPUClusterPolicy CRD, conditions, labels and
+                  resource names (``nvidia.com/gpu``)
+- ``render/``     the template engine over ``manifests/``
+- ``state/``      the operand states, their apply/readiness skeleton and
+                  dependency DAG; node pools
+- ``controllers/`` the GPUClusterPolicy reconciler and state manager
+- ``manifests/``  one directory per operand state; every ``command:``
+                  names one of the port's agents
 - ``cli/``        ``python -m tpu_operator_torch.cli.validator``
 - ``entry.py``    the burn-in model's forward on one card
 - ``convert.py``  numpy (and JAX-as-numpy) arrays into torch tensors
@@ -29,3 +37,5 @@ Package map:
 Entry points take a ``device``: ``None`` means ``cuda:0`` and raises where
 there is no CUDA; the CPU runs only when the caller passes ``"cpu"``.
 """
+
+__version__ = "0.1.0"

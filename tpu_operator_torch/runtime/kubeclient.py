@@ -7,8 +7,8 @@ a node (whole, or its metadata alone), list nodes and merge-patch one. It runs
 inside a pod on the service account's token and CA and the
 ``KUBERNETES_SERVICE_HOST``/``_PORT`` contract, over ``urllib``.
 
-Errors carry an HTTP status ``code`` as the reference's ``ApiError`` does:
-``NotFoundError`` is 404. The proofs treat any exception whose ``code`` is
+Errors are the port's own ``runtime/client.py`` classes, each with its HTTP
+status ``code``: ``NotFoundError`` is 404. The proofs treat any exception whose ``code`` is
 404 as not-found, so the reference's ``FakeClient`` drives them in tests.
 """
 
@@ -22,26 +22,13 @@ import urllib.parse
 import urllib.request
 from typing import List, Mapping, Optional
 
+from .client import ApiError, NotFoundError
+
 SA_DIR = "/var/run/secrets/kubernetes.io/serviceaccount"
 REQUEST_TIMEOUT_S = 30.0
 
 # kind -> (plural, namespaced): only the kinds the validator touches
 _KINDS = {"Pod": ("pods", True), "Node": ("nodes", False)}
-
-
-class ApiError(Exception):
-    """An apiserver answer that is not a success; ``code`` is its status."""
-
-    code = 500
-
-    def __init__(self, message: str, code: Optional[int] = None):
-        super().__init__(message)
-        if code is not None:
-            self.code = code
-
-
-class NotFoundError(ApiError):
-    code = 404
 
 
 class InClusterClient:

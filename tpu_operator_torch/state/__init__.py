@@ -1,4 +1,5 @@
-"""Node-pool partitioning (``tpu_operator/state/nodepool.py``'s counterpart)."""
+"""The operand states (``operands``), their apply/readiness skeleton
+(``skel``), dependency DAG (``scheduler``) and node pools (``nodepool``)."""
 
 from .nodepool import (  # noqa: F401
     NodePool,
