@@ -17,8 +17,9 @@ the CUDA validation pod's payload, chip telemetry over NVML and the
 forward entry point run on the card, the node's allocation plane hands
 the card to child processes, and the topology manager groups the cards
 behind the device plugin. The operator's reconcile renders the validator
-DaemonSet, whose init containers run on the card as processes. Phases,
-each fatal:
+DaemonSet, whose init containers run on the card as processes, first
+driven pass by pass and then by the operator's runtime (the Manager's
+watches, workqueue and informer cache). Phases, each fatal:
 
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
 2. build the hand-written kernels from the checkout's sources, one nvcc
@@ -118,6 +119,25 @@ G. the operator's reconcile path on the port's FakeClient: a GPU node
    ready (Ready=True, clusterInfo, the gpu_nodes and gpu_chips gauges), a
    steady pass writes nothing, and disabling the metrics exporter removes
    its DaemonSet. ms per pass and per state, seconds per container;
+H. the operator's runtime: ``gpu-operator --fake-cluster --once
+   --fake-gpu-nodes 1`` as a process (rc 0, seconds); then phase G's
+   cluster under the Manager as ``gpu-operator`` wires it (the informer
+   cache, the tracing client, leader election, a snapshot dir, the
+   GPUClusterPolicy controller at two workers, the health server on an
+   ephemeral port), and no direct reconcile() call: the policy created,
+   a kubelet thread plays the rendered validator DaemonSet's init
+   containers on the card (hbm-validation's child launches the triad),
+   every operand's wait, then marks the DaemonSets ready, and the
+   policy reaches ready by a reconcile caused by a DaemonSet's watch
+   event. Install-to-ready, each reconcile's ms, queue wait and causes;
+   /healthz, /metrics (the reconcile histogram's count = the
+   controller's), /debug/traces (a state span, ready, for every enabled
+   state; ms a state), /debug/timeline (new -> notReady -> ready),
+   /debug/cache (cached, its reads), /debug/slo, /debug/snapshot, the
+   Lease held; 5 s steady with one more pass through the queue: no write
+   but the elector's Lease renewals, no get or list past the cache; a
+   restart from the snapshot written at stop: restored, converged, no
+   write but the Lease's;
 14. print the kernel table as one JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``; on any failure the
@@ -2295,6 +2315,118 @@ def play_pod(env: dict, runs: list):
     return play
 
 
+def container_base_env(extra_env: dict | None) -> dict:
+    """What a container's process starts from: the image's and the
+    container toolkit's env (never the validator's own knobs from this
+    script's env), and the checkout on PYTHONPATH."""
+    base = {k: os.environ[k] for k in CONTAINER_BASE_ENV if k in os.environ}
+    base.update({k: v for k, v in os.environ.items()
+                 if k.startswith(("NVIDIA_", "CUDA_"))})
+    base.update(extra_env or {})
+    base["PYTHONPATH"] = os.getcwd()
+    return base
+
+
+def validator_stand_ins(pod: dict, valdir: str) -> dict:
+    """The env that stands in for the validator pod's volume mounts; every
+    container must mount the validations at the validator's default dir."""
+    from tpu_operator_torch.validator import barrier
+
+    mounts = {v["name"]: v for v in pod["volumes"]}
+    log(f"  stand-ins for the pod's volume mounts: validations "
+        f"(hostPath {mounts['validations']['hostPath']['path']}) -> "
+        f"GPU_VALIDATION_DIR={valdir}; host-root (hostPath "
+        f"{mounts['host-root']['hostPath']['path']} at /host) -> "
+        f"HOST_ROOT=/; the service account -> the stub apiserver")
+    for ctr in pod["initContainers"] + pod["containers"]:
+        for m in ctr.get("volumeMounts") or []:
+            if m["name"] == "validations" and \
+                    m["mountPath"] != barrier.DEFAULT_DIR:
+                raise RuntimeError(f"{ctr['name']} mounts the validations "
+                                   f"at {m['mountPath']}, not the "
+                                   f"validator's default dir")
+    return {"GPU_VALIDATION_DIR": valdir, "HOST_ROOT": "/"}
+
+
+def operand_waits(client, base: dict, stand_ins: dict, scripts: dict,
+                  label: str, cut: bool = False) -> dict:
+    """Every operand's rendered wait init container, at once, as
+    processes; with ``cut`` only the device plugin's, its timeout cut."""
+    jobs = []
+    for ds in client.list("apps/v1", "DaemonSet"):
+        for ctr in ds["spec"]["template"]["spec"].get(
+                "initContainers") or []:
+            if (ctr.get("args") or [None])[0] != "wait":
+                continue
+            if cut and ds["metadata"]["name"] != \
+                    "gpu-device-plugin-daemonset":
+                continue
+            env = {**base, **rendered_env(ctr, RECONCILE_NODE,
+                                          RECONCILE_NAMESPACE),
+                   **stand_ins}
+            extra = ("--timeout", str(WAIT_CUT_TIMEOUT_S)) if cut else ()
+            jobs.append((ds["metadata"]["name"], ctr, env, extra))
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as ex:
+        outs = list(ex.map(lambda j: container_process(
+            j[1], scripts, j[2], j[3]), jobs))
+    res = {f"{j[0]}/{j[1]['name']} {' '.join(j[1]['args'])}":
+           (o["rc"], round(o["seconds"], 3)) for j, o in zip(jobs, outs)}
+    log(f"  {label}: {res}")
+    return res
+
+
+def play_init_containers(pod: dict, base: dict, stand_ins: dict,
+                         api_url: str, scripts: dict, card: str) -> dict:
+    """The validator pod's init containers in order, each its command's
+    [project.scripts] target as a process; each must exit 0 and write its
+    barrier file. plugin-validation reaches the stub apiserver."""
+    from tpu_operator_torch.validator import barrier
+
+    containers = {}
+    for ctr in pod["initContainers"]:
+        env = {**base, **rendered_env(ctr, RECONCILE_NODE,
+                                      RECONCILE_NAMESPACE), **stand_ins}
+        if ctr["name"] == "plugin-validation":
+            env["SMOKE_APISERVER"] = api_url
+        shown = {k: v for k, v in env.items() if k not in base}
+        res = container_process(ctr, scripts, env)
+        status = ctr["args"][1] + "-ready"
+        with environ(GPU_VALIDATION_DIR=stand_ins["GPU_VALIDATION_DIR"]):
+            info = barrier.read_status(status)
+        res["barrier"] = info
+        log(f"  {ctr['name']}: {ctr['command'] + ctr['args']} -> "
+            f"{res['target']}, env {shown}: rc={res['rc']} in "
+            f"{res['seconds']:.3f}s ({card}), {status}: {info}")
+        if res["rc"] != 0 or info is None:
+            raise RuntimeError(f"{ctr['name']} failed (rc={res['rc']}, "
+                               f"{status} {info}): {res['stderr_tail']}")
+        res.pop("stderr_tail")
+        containers[ctr["name"]] = res
+    if not containers["dcn-validation"]["barrier"].get("SKIPPED"):
+        raise RuntimeError("dcn-validation did not record the single-node "
+                           "skip")
+    if containers["hbm-validation"]["triad_launches"] == 0:
+        raise RuntimeError("hbm-validation did not launch the triad kernel")
+    return containers
+
+
+def gpu_node_cluster(n_cards: int):
+    """The port's FakeClient over a GPU node built from the card (GKE's
+    accelerator label, the allocatable cards, feature discovery's NVML
+    labels) and a CPU node."""
+    from tpu_operator_torch.api import labels as L
+    from tpu_operator_torch.featurediscovery import FeatureDiscovery
+    from tpu_operator_torch.runtime.fake import FakeClient
+
+    client = FakeClient()
+    client.add_node(RECONCILE_NODE, labels={
+        L.GKE_ACCELERATOR: "nvidia-h100-80gb"},
+        allocatable={L.GPU_RESOURCE: str(n_cards)})
+    client.add_node("cpu-node")
+    FeatureDiscovery(client, RECONCILE_NODE).apply_once()
+    return client
+
+
 def reconcile_phase(torch, card: str, extra_env: dict | None = None,
                     matmul_size: int = MATMUL_SIZE) -> dict:
     """Phase G: the operator's reconcile path. A GPU node built from the
@@ -2316,14 +2448,11 @@ def reconcile_phase(torch, card: str, extra_env: dict | None = None,
     from tpu_operator_torch.api.conditions import COND_READY, get_condition
     from tpu_operator_torch.controllers.clusterpolicy_controller import (
         ClusterPolicyReconciler)
-    from tpu_operator_torch.featurediscovery import FeatureDiscovery
     from tpu_operator_torch.metrics.registry import render_prometheus
-    from tpu_operator_torch.runtime.fake import FakeClient
     from tpu_operator_torch.runtime.manager import Request
     from tpu_operator_torch.runtime.objects import is_namespaced, thaw_obj
     from tpu_operator_torch.state.operands import build_states
     from tpu_operator_torch.state.state import SyncContext
-    from tpu_operator_torch.validator import barrier
 
     n_cards = torch.cuda.device_count() if extra_env is None else 1
     threshold = float(os.environ.get("NVLINK_THRESHOLD", "0.8"))
@@ -2332,12 +2461,7 @@ def reconcile_phase(torch, card: str, extra_env: dict | None = None,
     ms = {}
 
     # G1. the node, from the card
-    client = FakeClient()
-    client.add_node(RECONCILE_NODE, labels={
-        L.GKE_ACCELERATOR: "nvidia-h100-80gb"},
-        allocatable={L.GPU_RESOURCE: str(n_cards)})
-    client.add_node("cpu-node")
-    FeatureDiscovery(client, RECONCILE_NODE).apply_once()
+    client = gpu_node_cluster(n_cards)
     client.create(new_cluster_policy(spec={"validator": {
         "nvlinkBandwidthThreshold": threshold, "matmulSize": matmul_size}}))
     rec = ClusterPolicyReconciler(client=client,
@@ -2389,99 +2513,33 @@ def reconcile_phase(torch, card: str, extra_env: dict | None = None,
     figures["daemonsets"] = dss
 
     # G3/G4. the rendered validator pod on the card, gated
-    validator = daemonset(client, "gpu-operator-validator")
-    pod = validator["spec"]["template"]["spec"]
-    mounts = {v["name"]: v for v in pod["volumes"]}
+    pod = daemonset(client, "gpu-operator-validator")["spec"]["template"][
+        "spec"]
     valdir = tempfile.mkdtemp(prefix="gpu-reconcile-validations-")
-    stand_ins = {"GPU_VALIDATION_DIR": valdir, "HOST_ROOT": "/"}
-    log(f"  stand-ins for the pod's volume mounts: validations "
-        f"(hostPath {mounts['validations']['hostPath']['path']}) -> "
-        f"GPU_VALIDATION_DIR={valdir}; host-root (hostPath "
-        f"{mounts['host-root']['hostPath']['path']} at /host) -> "
-        f"HOST_ROOT=/; the service account -> the stub apiserver")
-    base = {k: os.environ[k] for k in CONTAINER_BASE_ENV if k in os.environ}
-    base.update({k: v for k, v in os.environ.items()
-                 if k.startswith(("NVIDIA_", "CUDA_"))})
-    base.update(extra_env or {})
-    base["PYTHONPATH"] = os.getcwd()
+    stand_ins = validator_stand_ins(pod, valdir)
+    base = container_base_env(extra_env)
     pod_runs = []
     api = StubApiserver(RECONCILE_NODE, {}, allocatable={
         L.GPU_RESOURCE: str(n_cards)}, play_pod=play_pod(base, pod_runs))
-    containers = {}
-    chain_t0 = time.perf_counter()
     try:
-        for ctr in pod["initContainers"] + pod["containers"]:
-            for m in ctr.get("volumeMounts") or []:
-                if m["name"] == "validations" and \
-                        m["mountPath"] != barrier.DEFAULT_DIR:
-                    raise RuntimeError(f"{ctr['name']} mounts the "
-                                       f"validations at {m['mountPath']}, "
-                                       f"not the validator's default dir")
-
-        def waits(label, cut=False):
-            """Every operand's rendered wait init container, at once."""
-            jobs = []
-            for ds in client.list("apps/v1", "DaemonSet"):
-                for ctr in ds["spec"]["template"]["spec"].get(
-                        "initContainers") or []:
-                    if (ctr.get("args") or [None])[0] != "wait":
-                        continue
-                    if cut and ds["metadata"]["name"] != \
-                            "gpu-device-plugin-daemonset":
-                        continue
-                    env = {**base, **rendered_env(
-                        ctr, RECONCILE_NODE, RECONCILE_NAMESPACE),
-                        **stand_ins}
-                    extra = ("--timeout", str(WAIT_CUT_TIMEOUT_S)) \
-                        if cut else ()
-                    jobs.append((ds["metadata"]["name"], ctr, env, extra))
-            with concurrent.futures.ThreadPoolExecutor(len(jobs)) as ex:
-                outs = list(ex.map(lambda j: container_process(
-                    j[1], scripts, j[2], j[3]), jobs))
-            res = {f"{j[0]}/{j[1]['name']} {' '.join(j[1]['args'])}":
-                   (o["rc"], round(o["seconds"], 3))
-                   for j, o in zip(jobs, outs)}
-            log(f"  {label}: {res}")
-            return res
-
-        before = waits("the device plugin's wait before the chain, cut "
-                       f"to {WAIT_CUT_TIMEOUT_S} s", cut=True)
+        before = operand_waits(
+            client, base, stand_ins, scripts, "the device plugin's wait "
+            f"before the chain, cut to {WAIT_CUT_TIMEOUT_S} s", cut=True)
         if not before or any(rc == 0 for rc, _ in before.values()):
             raise RuntimeError(f"a wait passed before the chain: {before}")
-        for ctr in pod["initContainers"]:
-            env = {**base, **rendered_env(ctr, RECONCILE_NODE,
-                                          RECONCILE_NAMESPACE),
-                   **stand_ins}
-            if ctr["name"] == "plugin-validation":
-                env["SMOKE_APISERVER"] = api.url
-            shown = {k: v for k, v in env.items() if k not in base}
-            res = container_process(ctr, scripts, env)
-            status = ctr["args"][1] + "-ready"
-            with environ(GPU_VALIDATION_DIR=valdir):
-                info = barrier.read_status(status)
-            res["barrier"] = info
-            log(f"  {ctr['name']}: {ctr['command'] + ctr['args']} -> "
-                f"{res['target']}, env {shown}: rc={res['rc']} in "
-                f"{res['seconds']:.3f}s ({card}), {status}: {info}")
-            if res["rc"] != 0 or info is None:
-                raise RuntimeError(f"{ctr['name']} failed (rc={res['rc']}, "
-                                   f"{status} {info}): {res['stderr_tail']}")
-            res.pop("stderr_tail")
-            containers[ctr["name"]] = res
+        chain_t0 = time.perf_counter()
+        containers = play_init_containers(pod, base, stand_ins, api.url,
+                                          scripts, card)
         chain_s = time.perf_counter() - chain_t0
-        after = waits("every operand's wait after the chain")
+        after = operand_waits(client, base, stand_ins, scripts,
+                              "every operand's wait after the chain")
         if any(rc != 0 for rc, _ in after.values()):
             raise RuntimeError(f"a wait failed after the chain: {after}")
     finally:
         api.stop()
         shutil.rmtree(valdir, ignore_errors=True)
     log(f"  the plugin pod as the stub played it: {pod_runs}")
-    if not containers["dcn-validation"]["barrier"].get("SKIPPED"):
-        raise RuntimeError("dcn-validation did not record the single-node "
-                           "skip")
     hbm = containers["hbm-validation"]
-    if hbm["triad_launches"] == 0:
-        raise RuntimeError("hbm-validation did not launch the triad kernel")
 
     # G5. ready, steady, an operand disabled
     client.simulate_kubelet(ready=True)
@@ -2501,9 +2559,7 @@ def reconcile_phase(torch, card: str, extra_env: dict | None = None,
     client.reset_verb_counts()
     result, cr = reconcile("steady_pass")
     verbs = client.reset_verb_counts()
-    writes = {v: n for v, n in verbs.items()
-              if v in ("create", "update", "update_status", "patch",
-                       "delete")}
+    writes = {v: n for v, n in verbs.items() if v in WRITE_VERBS}
     log(f"  steady pass in {ms['steady_pass']!r} ms ({card}): verbs "
         f"{verbs}")
     if writes or cr["status"]["state"] != "ready":
@@ -2532,6 +2588,370 @@ def reconcile_phase(torch, card: str, extra_env: dict | None = None,
     log(f"  validator chain as the operator waits on it: {chain_s:.3f} s "
         f"wall ({card})")
     return figures
+
+
+# phase H: the operator's runtime. The manager is wired as gpu-operator
+# wires it (the informer cache, the tracing client, leader election, the
+# snapshot plane) over phase G's cluster, and nothing calls reconcile():
+# the policy's watch, the nodes' and the owned DaemonSets' feed the
+# workqueue, and two workers reconcile. A kubelet thread plays the
+# rendered validator pod on the card, then marks the DaemonSets ready.
+OPERATOR_ARGS = ("--leader-elect", "--workers", "2", "--health-port", "0")
+RUNTIME_READY_TIMEOUT_S = 900
+STEADY_WINDOW_S = 5.0
+WRITE_VERBS = ("create", "update", "update_status", "patch", "delete")
+
+
+class WriteLog:
+    """Every write the apiserver side (the FakeClient) takes, by verb and
+    kind: the leader elector's Lease writes are told apart from the
+    reconcile's."""
+
+    def __init__(self, client):
+        self.entries = []
+        self._lock = threading.Lock()
+        for verb in WRITE_VERBS:
+            setattr(client, verb, self._recorded(verb, getattr(client, verb)))
+
+    def _recorded(self, verb, inner):
+        def write(*args, **kw):
+            kind = args[0].get("kind") if verb in (
+                "create", "update", "update_status") else args[1]
+            with self._lock:
+                self.entries.append((verb, kind))
+            return inner(*args, **kw)
+        return write
+
+    def take(self) -> dict:
+        """{"verb kind": n} since the last take."""
+        with self._lock:
+            entries, self.entries = self.entries, []
+        out = {}
+        for verb, kind in entries:
+            out[f"{verb} {kind}"] = out.get(f"{verb} {kind}", 0) + 1
+        return out
+
+
+def wait_for(pred, what: str, timeout: float, poll: float = 0.05):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        value = pred()
+        if value:
+            return value
+        time.sleep(poll)
+    raise RuntimeError(f"timed out after {timeout} s waiting for {what}")
+
+
+def histogram_count(text: str, name: str, controller: str) -> float:
+    return prom_series(text).get(
+        (name + "_count", (("controller", controller),)), 0.0)
+
+
+def operator_process_phase(card: str) -> dict:
+    """H0: ``gpu-operator --fake-cluster --once --fake-gpu-nodes 1``,
+    resolved through [project.scripts], as a process."""
+    ctr = {"name": "gpu-operator", "command": ["gpu-operator"],
+           "args": ["--fake-cluster", "--once", "--fake-gpu-nodes", "1"]}
+    res = container_process(ctr, project_scripts(),
+                            container_base_env(None))
+    log(f"  gpu-operator --fake-cluster --once --fake-gpu-nodes 1 -> "
+        f"{res['target']}: rc={res['rc']} in {res['seconds']:.3f}s "
+        f"({card})")
+    if res["rc"] != 0:
+        raise RuntimeError(f"gpu-operator exited {res['rc']}: "
+                           f"{res['stderr_tail']}")
+    res.pop("stderr_tail")
+    return res
+
+
+def reconcile_traces(traces: list) -> list:
+    """One row a reconcile, oldest first: ms, queue wait, causes, state."""
+    rows = []
+    for t in reversed(traces):
+        states = [c.get("tags", {}).get("status")
+                  for c in t["root"].get("children", [])
+                  if c["name"].startswith("state:")]
+        causes = sorted({f"{c['reason']} {c.get('origin', '')}".strip()
+                         for c in t.get("causes", [])})
+        rows.append({"id": t["id"], "ms": t["duration_s"] * 1e3,
+                     "queue_wait_ms": (t["queue_wait_s"] or 0.0) * 1e3,
+                     "causes": causes,
+                     "ready_states": states.count("ready"),
+                     "settled": all(s in ("ready", "disabled")
+                                    for s in states),
+                     "states": len(states), "outcome": t["outcome"]})
+    return rows
+
+
+def runtime_phase(torch, card: str, extra_env: dict | None = None,
+                  matmul_size: int = MATMUL_SIZE) -> dict:
+    """Phase H: the operator's runtime on the card (H1-H5; H0 runs
+    apart). ``extra_env`` and ``matmul_size`` serve a rehearsal on the
+    CPU only."""
+    from tpu_operator_torch.api import labels as L
+    from tpu_operator_torch.api.clusterpolicy import (
+        KIND_CLUSTER_POLICY, V1, GPUClusterPolicySpec, new_cluster_policy)
+    from tpu_operator_torch.cli.operator import build_parser, wire_manager
+    from tpu_operator_torch.metrics.registry import render_prometheus
+    from tpu_operator_torch.runtime.manager import Request
+    from tpu_operator_torch.runtime.timeline import TIMELINE
+    from tpu_operator_torch.runtime.tracing import TRACER
+    from tpu_operator_torch.state.operands import build_states
+    from tpu_operator_torch.state.state import SyncContext
+
+    n_cards = torch.cuda.device_count() if extra_env is None else 1
+    threshold = float(os.environ.get("NVLINK_THRESHOLD", "0.8"))
+    scripts = project_scripts()
+    figures = {"card": card}
+    hist = "gpu_operator_reconcile_duration_seconds"
+
+    # H1. the manager over phase G's cluster, wired as gpu-operator does
+    client = gpu_node_cluster(n_cards)
+    writes = WriteLog(client)
+    args = build_parser().parse_args(list(OPERATOR_ARGS))
+    snapdir = tempfile.mkdtemp(prefix="gpu-operator-snapshots-")
+    valdir = tempfile.mkdtemp(prefix="gpu-runtime-validations-")
+    TRACER.reset()
+    TIMELINE.reset()
+    mgr = wire_manager(client, args, snapshot_dir=snapdir)
+    ctrl = mgr.controllers[0]
+    hist0 = histogram_count(render_prometheus(), hist, ctrl.name)
+    base = container_base_env(extra_env)
+    pod_runs = []
+    api = StubApiserver(RECONCILE_NODE, {}, allocatable={
+        L.GPU_RESOURCE: str(n_cards)}, play_pod=play_pod(base, pod_runs))
+    kubelet_out = {}
+    mgr2 = None
+    try:
+        t0 = time.perf_counter()
+        mgr.start()
+        url = f"http://127.0.0.1:{mgr._http.server_address[1]}"
+        wait_for(lambda: mgr.elector.is_leader, "the Lease", 30)
+        log(f"  manager started, Lease won in "
+            f"{(time.perf_counter() - t0) * 1e3:.1f} ms; health server "
+            f"{url}; OPERATOR_ARGS {' '.join(OPERATOR_ARGS)}; client "
+            f"{type(mgr.client).__name__} -> "
+            f"{type(mgr.client.inner).__name__} -> "
+            f"{type(mgr.client.inner.inner).__name__}")
+        t_install = time.perf_counter()
+        client.create(new_cluster_policy(spec={"validator": {
+            "nvlinkBandwidthThreshold": threshold,
+            "matmulSize": matmul_size}}))
+
+        # H2. the kubelet plays the chain; the manager reconciles alone
+        def kubelet():
+            try:
+                ds = wait_for(lambda: client.get_or_none(
+                    "apps/v1", "DaemonSet", "gpu-operator-validator",
+                    RECONCILE_NAMESPACE), "the validator DaemonSet", 60)
+                pod = ds["spec"]["template"]["spec"]
+                stand_ins = validator_stand_ins(pod, valdir)
+                c0 = time.perf_counter()
+                kubelet_out["containers"] = play_init_containers(
+                    pod, base, stand_ins, api.url, scripts, card)
+                kubelet_out["chain_s"] = time.perf_counter() - c0
+                kubelet_out["waits"] = operand_waits(
+                    client, base, stand_ins, scripts,
+                    "every operand's wait after the chain")
+                if any(rc != 0 for rc, _ in kubelet_out["waits"].values()):
+                    raise RuntimeError(f"a wait failed after the chain: "
+                                       f"{kubelet_out['waits']}")
+                kubelet_out["marked_at"] = time.perf_counter()
+                client.simulate_kubelet(ready=True)
+            except BaseException as e:  # re-raised by the phase below
+                kubelet_out["error"] = e
+
+        th = threading.Thread(target=kubelet, name="smoke-kubelet",
+                              daemon=True)
+        th.start()
+
+        def policy_state():
+            cr = client.get(V1, KIND_CLUSTER_POLICY, "gpu-cluster-policy")
+            return (cr.get("status") or {}).get("state")
+
+        wait_for(lambda: policy_state() == "ready" or "error" in kubelet_out,
+                 "the policy to be ready", RUNTIME_READY_TIMEOUT_S, 0.02)
+        t_ready = time.perf_counter()
+        ready_s = t_ready - t_install
+        th.join(timeout=60)
+        if "error" in kubelet_out:
+            raise kubelet_out["error"]
+        if "marked_at" not in kubelet_out or th.is_alive():
+            raise RuntimeError("the policy was ready before the kubelet "
+                               "marked the DaemonSets")
+        after_mark_ms = (t_ready - kubelet_out["marked_at"]) * 1e3
+        if not mgr.wait_idle(timeout=60, horizon=1.0):
+            raise RuntimeError("the controller did not go idle")
+        log(f"  the plugin pod as the stub played it: {pod_runs}")
+        gauges = prom_series(render_prometheus())
+        install_gauge = gauges.get(("gpu_operator_install_to_ready_seconds",
+                                    (("policy", "gpu-cluster-policy"),)))
+        traces = TRACER.traces(controller=ctrl.name)
+        rows = reconcile_traces(traces)
+        for row in rows:
+            log(f"    reconcile {row['id']}: {row['ms']:.1f} ms, queue "
+                f"wait {row['queue_wait_ms']:.2f} ms, {row['ready_states']}"
+                f"/{row['states']} states ready, {row['outcome']}, causes "
+                f"{row['causes']}")
+        ready_row = next(r for r in rows if r["states"] and r["settled"])
+        log(f"  H2: ready {ready_s:.3f} s after the policy was created "
+            f"(gpu_operator_install_to_ready_seconds {install_gauge!r}), "
+            f"{after_mark_ms:.1f} ms after the kubelet marked the "
+            f"DaemonSets; {ctrl.reconcile_total} reconciles "
+            f"({ctrl.reconcile_errors} failed), none called directly; the "
+            f"ready one {ready_row['id']} ({card})")
+        if not any(c.startswith("watch:MODIFIED DaemonSet/")
+                   for c in ready_row["causes"]):
+            raise RuntimeError(f"the ready reconcile was not caused by a "
+                               f"DaemonSet's watch event: {ready_row}")
+        hbm = kubelet_out["containers"]["hbm-validation"]
+        log(f"  validator chain as the runtime waits on it: "
+            f"{kubelet_out['chain_s']:.3f} s wall; hbm-validation's child "
+            f"launched the triad {hbm['triad_launches']} times ({card})")
+
+        # H3. observability over HTTP
+        code, body = http_get(url + "/healthz")
+        if code != 200 or body != b"ok":
+            raise RuntimeError(f"/healthz answered {code} {body!r}")
+        for _ in range(50):
+            total = ctrl.reconcile_total
+            code, text = http_get(url + "/metrics")
+            count = histogram_count(text.decode(), hist, ctrl.name) - hist0
+            if code == 200 and total == ctrl.reconcile_total == count:
+                break
+            time.sleep(0.1)
+        else:
+            raise RuntimeError(f"/metrics: {hist}_count rose {count}, the "
+                               f"controller counted {ctrl.reconcile_total}")
+        code, body = http_get(url + "/debug/traces?controller=" + ctrl.name)
+        served = json.loads(body)
+        ready_trace = next(t for t in served["traces"]
+                           if t["id"] == ready_row["id"])
+        spans = {c["name"][len("state:"):]: c for c in
+                 ready_trace["root"]["children"]
+                 if c["name"].startswith("state:")}
+        policy = client.get(V1, KIND_CLUSTER_POLICY, "gpu-cluster-policy")
+        ctx = SyncContext(client=client, policy=policy,
+                          spec=GPUClusterPolicySpec.from_obj(policy),
+                          namespace=RECONCILE_NAMESPACE)
+        enabled = [s.name for s in build_states() if s.enabled(ctx)]
+        ms_per_state = {name: spans[name]["duration_s"] * 1e3
+                        for name in enabled if name in spans}
+        statuses = {name: spans.get(name, {}).get("tags", {}).get("status")
+                    for name in enabled}
+        log(f"  H3: /healthz 200; /metrics {hist}_count rose {count:.0f} = "
+            f"reconcile_total {ctrl.reconcile_total}; /debug/traces "
+            f"{served['count']} traces, the ready one's state spans "
+            f"{statuses}")
+        log(f"  ms per state in the ready reconcile (its spans, {card}): "
+            f"{ms_per_state}")
+        if set(ms_per_state) != set(enabled) or \
+                any(v != "ready" for v in statuses.values()):
+            raise RuntimeError(f"the ready reconcile lacks a state span or "
+                               f"a ready status: {statuses}")
+        code, body = http_get(url + f"/debug/timeline?kind="
+                              f"{KIND_CLUSTER_POLICY}&name=gpu-cluster-policy")
+        events = json.loads(body)["events"]
+        changes = [(e["detail"]["from"], e["detail"]["to"]) for e in events
+                   if e["event"] == "state"]
+        log(f"  /debug/timeline: {len(events)} events, state changes "
+            f"{changes}")
+        if code != 200 or changes != [("new", "notReady"),
+                                      ("notReady", "ready")]:
+            raise RuntimeError(f"the timeline's state changes: {changes}")
+        code, body = http_get(url + "/debug/cache")
+        cache = json.loads(body)
+        log(f"  /debug/cache: cached {cache['cached']}, cache_reads "
+            f"{cache['cache_reads']}, relists {cache['relists']}, kinds "
+            f"{ {k: v['objects'] for k, v in cache['kinds'].items()} }")
+        if code != 200 or not cache["cached"] or cache["cache_reads"] <= 0:
+            raise RuntimeError(f"/debug/cache: {cache}")
+        for path in ("/debug/slo", "/debug/snapshot"):
+            code, body = http_get(url + path)
+            if code != 200:
+                raise RuntimeError(f"{path} answered {code}")
+        slo = json.loads(http_get(url + "/debug/slo")[1])
+        log(f"  /debug/slo 200: "
+            f"{ {s['name']: s['breached'] for s in slo['slos']} }; "
+            f"/debug/snapshot 200")
+        lease = client.get("coordination.k8s.io/v1", "Lease", "gpu-operator",
+                           RECONCILE_NAMESPACE)
+        log(f"  Lease gpu-operator/{RECONCILE_NAMESPACE} held by "
+            f"{lease['spec']['holderIdentity']}")
+        if lease["spec"]["holderIdentity"] != mgr.elector.identity:
+            raise RuntimeError(f"the Lease is not ours: {lease['spec']}")
+
+        # H4. steady: the kubelet quiet, one more pass through the queue
+        writes.take()
+        client.reset_verb_counts()
+        total0 = ctrl.reconcile_total
+        ctrl.enqueue(Request(name="gpu-cluster-policy"))
+        time.sleep(STEADY_WINDOW_S)
+        if not mgr.wait_idle(timeout=30, horizon=1.0):
+            raise RuntimeError("the controller did not go idle")
+        steady_writes = writes.take()
+        verbs = client.reset_verb_counts()
+        ours = {k: n for k, n in steady_writes.items() if k != "update Lease"}
+        log(f"  H4: {STEADY_WINDOW_S} s steady, "
+            f"{ctrl.reconcile_total - total0} reconciles: writes "
+            f"{steady_writes} (the Lease's are the elector's renewals), "
+            f"verbs {verbs}")
+        if ours or verbs.get("get") or verbs.get("list") or \
+                policy_state() != "ready":
+            raise RuntimeError(f"the steady state wrote {ours} or read "
+                               f"past the cache: {verbs}")
+
+        # H5. restart from the snapshot
+        t_stop = time.perf_counter()
+        stopping, mgr = mgr, None
+        stopping.stop()
+        stop_ms = (time.perf_counter() - t_stop) * 1e3
+        files = sorted(os.listdir(snapdir))
+        writes.take()
+        client.reset_verb_counts()
+        mgr2 = wire_manager(client, args, snapshot_dir=snapdir)
+        ctrl2 = mgr2.controllers[0]
+        t_restart = time.perf_counter()
+        mgr2.start()
+        wait_for(lambda: mgr2.elector.is_leader, "the Lease again", 60)
+        wait_for(lambda: ctrl2.reconcile_total >= 1, "a reconcile", 60)
+        if not mgr2.wait_idle(timeout=60, horizon=1.0):
+            raise RuntimeError("the restarted controller did not go idle")
+        restart_ms = (time.perf_counter() - t_restart) * 1e3
+        restore = mgr2.last_restore or {}
+        restart_writes = writes.take()
+        verbs2 = client.reset_verb_counts()
+        ours = {k: n for k, n in restart_writes.items()
+                if not k.endswith(" Lease")}
+        log(f"  H5: stop {stop_ms:.1f} ms wrote {files}; the restart "
+            f"restored {restore} and converged in {restart_ms:.1f} ms over "
+            f"{ctrl2.reconcile_total} reconciles: writes {restart_writes} "
+            f"(the Lease's are the electors'), verbs {verbs2} ({card})")
+        if restore.get("outcome") != "restored" or ours or \
+                policy_state() != "ready":
+            raise RuntimeError(f"the restart: {restore}, wrote {ours}")
+        figures.update({
+            "install_to_ready_s": ready_s,
+            "install_to_ready_gauge_s": install_gauge,
+            "ready_after_kubelet_ms": after_mark_ms,
+            "reconciles": rows, "ready_reconcile": ready_row["id"],
+            "ms_per_state": ms_per_state,
+            "chain_wall_s": kubelet_out["chain_s"],
+            "containers": kubelet_out["containers"],
+            "waits": kubelet_out["waits"], "plugin_pod": pod_runs,
+            "triad_launches": hbm["triad_launches"],
+            "steady": {"writes": steady_writes, "verbs": verbs},
+            "restart": {"restore": restore, "ms": restart_ms,
+                        "writes": restart_writes, "verbs": verbs2,
+                        "stop_ms": stop_ms}})
+        return figures
+    finally:
+        for m in (mgr, mgr2):
+            if m is not None:
+                m.stop()
+        api.stop()
+        shutil.rmtree(valdir, ignore_errors=True)
+        shutil.rmtree(snapdir, ignore_errors=True)
 
 
 def main() -> int:
@@ -2811,6 +3231,29 @@ def main() -> int:
         raise RuntimeError("the reconcile launched a kernel in this process")
     log(json.dumps({"reconcile": reconcile}))
 
+    # H: the operator's runtime. The manager's watches drive the policy to
+    # ready with no direct reconcile; its own modules launch no kernel, and
+    # the validator pod the kubelet thread plays runs the triad in its
+    # hbm-validation child, whose launcher reports that process's count
+    hbm_probe.triad_.launches = 0
+    fa.flash_attention_blocks.launches = 0
+    log("# phase H: the operator's runtime (gpu-operator, the Manager's "
+        "watches, workqueue, informer cache, tracing, leader election, "
+        "snapshots)")
+    torch.cuda.empty_cache()
+    h0 = operator_process_phase(card)
+    runtime = runtime_phase(torch, card)
+    runtime["operator_process"] = h0
+    runtime["launches_in_process"] = {
+        "triad": hbm_probe.triad_.launches,
+        "flash_attention": fa.flash_attention_blocks.launches}
+    log(f"  kernel launches in phase H: triad {runtime['triad_launches']} "
+        f"in the hbm-validation child; in this process "
+        f"{runtime['launches_in_process']}")
+    if any(runtime["launches_in_process"].values()):
+        raise RuntimeError("the runtime launched a kernel in this process")
+    log(json.dumps({"runtime": runtime}))
+
     # 14. the kernel table
     kernels = [{
         "name": "triad",
@@ -2819,6 +3262,7 @@ def main() -> int:
         "replaces": "tpu_operator/workloads/pallas_probe.py:30",
         "launches": triad_launches,
         "launches_phase_g_child": reconcile["triad_launches"],
+        "launches_phase_h_child": runtime["triad_launches"],
         "max_abs_err": triad_err,
         "tolerance": TRIAD_TOLERANCE,
         "ms": kernel_ms,

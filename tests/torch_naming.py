@@ -10,6 +10,7 @@ from __future__ import annotations
 # --- the CRD ----------------------------------------------------------------
 CRD = {
     "TPUClusterPolicy": "GPUClusterPolicy",
+    "tpuclusterpolicies": "gpuclusterpolicies",  # the plural in the path
     "tpu.graft.dev/v1": "gpu.graft.dev/v1",
     "tpu-cluster-policy": "gpu-cluster-policy",
     "TPUDriver": "GPUDriver",
@@ -164,8 +165,34 @@ TEXT = (
     ("vtpu-", "vgpu-"),
 )
 
+# --- the operator's runtime ------------------------------------------------
+# the Lease and the CLI's default namespace are OBJECTS' "tpu-operator"
+RUNTIME = {
+    "tpu-operator": "gpu-operator",          # the CLI's prog and its script
+    "tpuclusterpolicy": "gpuclusterpolicy",  # the controller, metric label
+    "UNLABELED_TPU": "UNLABELED_GPU",        # the cache's node bucket
+    "--fake-tpu-nodes": "--fake-gpu-nodes",  # the CLI's flag
+    # a fake node: a GKE TPU v5p host of 4 chips <-> a GKE H100 host of 4
+    # cards; GKE's TPU topology label has no GPU counterpart (dropped)
+    "cloud.google.com/gke-tpu-accelerator":
+        "cloud.google.com/gke-accelerator",
+    "tpu-v5p-slice": "nvidia-h100-80gb",
+    "tpu-node-0": "gpu-node-0",
+}
+# the labels the policy's Node watch fires on: feature discovery's
+# gpu.topology stands for GKE's TPU topology label (GKE names no GPU
+# topology), and the port also watches GKE's accelerator count, which
+# feeds gpu.chips
+NODE_WATCH = {
+    "cloud.google.com/gke-tpu-accelerator":
+        "cloud.google.com/gke-accelerator",
+    "cloud.google.com/gke-tpu-topology": "gpu.graft.dev/gpu.topology",
+}
+NODE_WATCH_ADDED = ("cloud.google.com/gke-accelerator-count",)
+
 EXACT = {**CRD, **STATES, **OBJECTS, **CONTAINERS, **PATHS, **COMMANDS,
-         **ARGS, **ENV, **RESOURCES, **PROFILES, **CARDS, **ALERTS}
+         **ARGS, **ENV, **RESOURCES, **PROFILES, **CARDS, **ALERTS,
+         **RUNTIME}
 
 
 def label_key(value: str) -> str:

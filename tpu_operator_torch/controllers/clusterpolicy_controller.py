@@ -5,15 +5,16 @@ clusterpolicy_controller.py`` (``reconcile``/``_reconcile``, :119-356;
 ClusterPolicyReconciler analog): singleton enforcement (oldest CR wins,
 duplicates -> ``ignored``), node labelling, state drive, coarse status +
 conditions, 5 s requeue while operands converge, 45 s poll while no GPU
-nodes exist. It is driven directly — one ``reconcile(Request(name))`` a
-pass — until the manager and its watches are ported.
+nodes exist. ``setup_controller`` registers its watches with the manager
+(SetupWithManager analog); a direct ``reconcile(Request(name))`` call
+(tests, benchmarks) opens its own trace root.
 """
 
 from __future__ import annotations
 
 import logging
 import os
-from typing import Optional
+from typing import Iterable, Optional
 
 from ..api import conditions
 from ..api.clusterpolicy import (
@@ -24,8 +25,20 @@ from ..api.clusterpolicy import (
     V1,
     GPUClusterPolicySpec,
 )
+from ..api import labels as L
 from ..metrics.operator_metrics import OPERATOR_METRICS
-from ..runtime.manager import Reconciler, Request, Result
+from ..runtime.client import WatchEvent
+from ..runtime.manager import (
+    Controller,
+    Manager,
+    Reconciler,
+    Request,
+    Result,
+    enqueue_owner,
+    generation_changed,
+    label_changed,
+)
+from ..runtime.workqueue import LANE_HEALTH
 from ..runtime.objects import get_nested, name_of, set_nested, thaw_obj
 from ..state.state import SyncStatus
 from .state_manager import StateManager
@@ -67,17 +80,68 @@ class ClusterPolicyReconciler(Reconciler):
         # duplicate must not zero the gauges the active CR exports
         self._slices_exporter: Optional[str] = None
 
+    # -- wiring (SetupWithManager analog, clusterpolicy_controller.go:355) --
+
+    def setup_controller(self, controller: Controller, manager: Manager):
+        controller.watch(V1, KIND_CLUSTER_POLICY, predicate=generation_changed)
+        # node events: GPU labels appearing/changing re-trigger every
+        # policy — health lane, so a node flapping in mid-rollout is
+        # examined before the bulk operand churn queued behind it. GKE
+        # names no GPU topology, so feature discovery's gpu.topology
+        # stands where the reference watches GKE's TPU topology label;
+        # the card count label feeds gpu.chips, so it is watched too.
+        controller.watch(
+            "v1", "Node",
+            predicate=label_changed(L.GKE_ACCELERATOR,
+                                    L.GKE_ACCELERATOR_COUNT, L.GPU_TOPOLOGY,
+                                    L.WORKLOAD_CONFIG, L.SLICE_CONFIG,
+                                    L.DEPLOY_PREFIX + "*"),
+            mapper=self._enqueue_all_policies,
+            lane=LANE_HEALTH)
+        # owned DaemonSets feed readiness back into the loop
+        controller.watch("apps/v1", "DaemonSet",
+                         mapper=enqueue_owner(V1, KIND_CLUSTER_POLICY))
+        # operand watch fan-out: every extra (apiVersion, kind) the
+        # states declare (State.watch_sources) edge-triggers a re-sync —
+        # a validator pod flipping Ready re-enqueues the policy NOW
+        # instead of after the 5 s not-ready requeue. Event storms
+        # collapse in the workqueue's pending-key coalescing.
+        watched = {(V1, KIND_CLUSTER_POLICY), ("v1", "Node"),
+                   ("apps/v1", "DaemonSet")}
+        for api_version, kind in self.state_manager.watch_sources():
+            if (api_version, kind) in watched:
+                continue
+            watched.add((api_version, kind))
+            controller.watch(api_version, kind,
+                             mapper=self._enqueue_all_policies)
+
+    def _enqueue_all_policies(self, event: WatchEvent) -> Iterable[Request]:
+        # runs on every matching node event; with the informer-backed
+        # CachedClient (the default wiring) this LIST never leaves the
+        # process, so a node-label storm costs no apiserver traffic
+        for cr in self.client.list(V1, KIND_CLUSTER_POLICY):
+            yield Request(name=name_of(cr))
+
     # -- reconcile ---------------------------------------------------------
 
     def reconcile(self, request: Request) -> Result:
         import time as _time
 
+        from ..runtime.tracing import TRACER
+
         started = _time.perf_counter()
         try:
-            return self._reconcile(request)
+            # direct-driven runs (benchmarks, tests) get their trace root
+            # here; under a Controller worker the trace is already open
+            # and this is a passthrough
+            with TRACER.trace(self.name, str(request)):
+                return self._reconcile(request)
         finally:
             elapsed = _time.perf_counter() - started
             OPERATOR_METRICS.reconcile_duration.set(elapsed)
+            # sole observation point of the per-controller duration
+            # histogram: exactly one sample per reconcile on both the
+            # worker-driven and direct-driven paths
             OPERATOR_METRICS.reconcile_duration_by_controller.labels(
                 controller=self.name).observe(elapsed)
 
@@ -283,6 +347,12 @@ class ClusterPolicyReconciler(Reconciler):
     def _set_state(self, cr: dict, state: str) -> None:
         prev = get_nested(cr, "status", "state", default=None)
         if prev != state:
+            from ..runtime.timeline import TIMELINE
+
+            if TIMELINE.enabled:
+                TIMELINE.record(KIND_CLUSTER_POLICY, name_of(cr), "state",
+                                {"controller": self.name,
+                                 "from": prev or "new", "to": state})
             # transition-only: a 5s not-ready requeue must not flood
             # Events (the recorder would dedup-count, but even counting
             # is noise for a non-transition)

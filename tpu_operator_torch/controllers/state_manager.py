@@ -230,36 +230,57 @@ class StateManager:
             results = self._sync_serial(ctx)
         return {state.name: results[state.name] for state in self.states}
 
-    def _run_state(self, state: State, ctx: SyncContext) -> SyncResult:
-        """One state's sync; a broken state must not wedge the rest, and
-        its wall time lands on the operand_sync_duration gauge either way."""
+    def _run_state(self, state: State, ctx: SyncContext,
+                   span) -> SyncResult:
+        """One state's sync under its ``state:<name>`` span; a broken
+        state must not wedge the rest, and its wall time lands on the
+        operand_sync_duration gauge either way."""
         start = time.perf_counter()
-        try:
-            return state.sync(ctx)
-        except Exception as e:
-            log.exception("state %s sync failed", state.name)
-            return SyncResult(SyncStatus.ERROR, str(e))
-        finally:
-            OPERATOR_METRICS.operand_sync_duration.labels(
-                state=state.name).set(time.perf_counter() - start)
+        # the span wraps the swallowing try: the exception never
+        # escapes, so the error is recorded on the span by hand
+        with span as sp:
+            try:
+                result = state.sync(ctx)
+                if sp is not None:
+                    sp.tags["status"] = result.status.value
+                return result
+            except Exception as e:
+                log.exception("state %s sync failed", state.name)
+                if sp is not None:
+                    sp.error = f"{type(e).__name__}: {e}"
+                return SyncResult(SyncStatus.ERROR, str(e))
+            finally:
+                OPERATOR_METRICS.operand_sync_duration.labels(
+                    state=state.name).set(time.perf_counter() - start)
 
     def _sync_serial(self, ctx: SyncContext) -> Dict[str, SyncResult]:
         """The pre-DAG walk, kept exactly: one state at a time in
         declaration order (the kill switch's contract)."""
-        return {state.name: self._run_state(state, ctx)
+        from ..runtime.tracing import TRACER
+
+        return {state.name: self._run_state(
+                    state, ctx, TRACER.span("state:" + state.name))
                 for state in self.states}
 
     def _sync_dag(self, ctx: SyncContext) -> Dict[str, SyncResult]:
         """Wave-parallel walk of the compiled plan. Per-state behavior
-        matches the serial loop; only the execution order differs.
-        Results land in a plain dict — every worker writes a distinct
-        key, and the waves join before anyone reads."""
+        (swallowing try, span tagging, duration gauge) matches the
+        serial loop; only the execution order differs. Results land in a
+        plain dict — every worker writes a distinct key, and the waves
+        join before anyone reads."""
+        from ..runtime.tracing import TRACER
+
         by_name = {state.name: state for state in self.states}
         self._pass_id += 1
         results: Dict[str, SyncResult] = {}
+        # the dispatching thread's innermost span: worker threads hang
+        # their state spans under it (their own stacks are empty)
+        handle = TRACER.current()
 
         def run_one(name: str) -> None:
-            results[name] = self._run_state(by_name[name], ctx)
+            results[name] = self._run_state(
+                by_name[name], ctx,
+                TRACER.span_under(handle, "state:" + name))
 
         run_plan(self.plan, run_one, journal=self.journal,
                  pass_id=self._pass_id, rng=DAG_GATE.virtual_rng)

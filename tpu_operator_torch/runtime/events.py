@@ -100,5 +100,10 @@ class EventRecorder:
                 "source": {"component": self.component},
             })
         except Exception as e:  # never fail the reconcile for an event
+            from .tracing import TRACER
+
+            # a dropped event is invisible in logs at default level; at
+            # least the reconcile's trace says it happened
+            TRACER.tag("event_dropped", f"{reason}: {e}")
             log.debug("event %s/%s not recorded: %s", reason,
                       name_of(obj), e)

@@ -37,6 +37,7 @@ from ..runtime.objects import (
     set_label,
     set_owner_reference,
 )
+from ..runtime.timeline import TIMELINE
 from ..utils.hash import object_hash
 
 log = logging.getLogger("tpu_operator_torch.state")
@@ -139,6 +140,11 @@ def apply_objects(client: Client, owner: Optional[dict], state_name: str,
                     and _live_matches_desired(obj, existing)):
                 OPERATOR_METRICS.writes_avoided.labels(
                     kind=obj.get("kind", "")).inc()
+                if TIMELINE.enabled:
+                    TIMELINE.record(obj.get("kind", ""), name_of(obj),
+                                    "write-avoided",
+                                    {"state": state_name,
+                                     "specHash": desired_hash[:12]})
                 applied.append(existing)  # hash-skip
                 continue
         elif annotations_of(existing).get(LAST_APPLIED_HASH) == desired_hash:
