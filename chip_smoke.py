@@ -19,7 +19,9 @@ the card to child processes, and the topology manager groups the cards
 behind the device plugin. The operator's reconcile renders the validator
 DaemonSet, whose init containers run on the card as processes, first
 driven pass by pass and then by the operator's runtime (the Manager's
-watches, workqueue and informer cache). Phases, each fatal:
+watches, workqueue and informer cache); under that runtime a driver CR's
+rollout walks the node through the upgrade FSM, and the port's headline
+bench runs as a process. Phases, each fatal:
 
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
 2. build the hand-written kernels from the checkout's sources, one nvcc
@@ -138,6 +140,24 @@ H. the operator's runtime: ``gpu-operator --fake-cluster --once
    but the elector's Lease renewals, no get or list past the cache; a
    restart from the snapshot written at stop: restored, converged, no
    write but the Lease's;
+I (before H). ``python -m tpu_operator_torch.bench`` as a process, its
+   rider's fleet at 2000 nodes: one JSON line that parses; the matmul
+   proof (one card) or the all-reduce (several) correct, and the triad
+   on one card; no ``error`` anywhere in it; the scale part ``ready``
+   with no request left once cached; both rollouts rolled. The line and
+   the triad's launches in the bench's process are printed;
+J (under H's restarted manager). A GPUDriver over the card's pool (the
+   policy's driver state stands down), auto-upgrade on, a workload pod
+   holding the cards, then the GPUDriver's driverVersion set to the
+   version nvidia-smi reports, which changes the driver's template. The
+   node's upgrade.state transitions, recorded as they happen, walk
+   upgrade-required -> cordon -> migrate -> drain -> pod-restart ->
+   validation -> uncordon -> done; the workload leaves by the FSM's
+   eviction; a kubelet thread plays the recreated driver pod (preflight,
+   gpu-driver-install proving the pinned version) and the recreated
+   validator pod's init containers on the card (hbm-validation's child
+   launches the triad), and validation waits for that pod; the node ends
+   uncordoned. Seconds from the version change to done, and a stage;
 14. print the kernel table as one JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``; on any failure the
@@ -2684,10 +2704,12 @@ def reconcile_traces(traces: list) -> list:
 
 
 def runtime_phase(torch, card: str, extra_env: dict | None = None,
-                  matmul_size: int = MATMUL_SIZE) -> dict:
+                  matmul_size: int = MATMUL_SIZE, rollout=None) -> dict:
     """Phase H: the operator's runtime on the card (H1-H5; H0 runs
     apart). ``extra_env`` and ``matmul_size`` serve a rehearsal on the
-    CPU only."""
+    CPU only. ``rollout``, when given, is phase J: called with the
+    restarted manager over the same cluster before it stops, its figures
+    returned under "rollout"."""
     from tpu_operator_torch.api import labels as L
     from tpu_operator_torch.api.clusterpolicy import (
         KIND_CLUSTER_POLICY, V1, GPUClusterPolicySpec, new_cluster_policy)
@@ -2944,6 +2966,10 @@ def runtime_phase(torch, card: str, extra_env: dict | None = None,
             "restart": {"restore": restore, "ms": restart_ms,
                         "writes": restart_writes, "verbs": verbs2,
                         "stop_ms": stop_ms}})
+        if rollout is not None:
+            figures["rollout"] = rollout(
+                client=client, mgr=mgr2, api=api, base=base,
+                scripts=scripts, valdir=valdir)
         return figures
     finally:
         for m in (mgr, mgr2):
@@ -2952,6 +2978,323 @@ def runtime_phase(torch, card: str, extra_env: dict | None = None,
         api.stop()
         shutil.rmtree(valdir, ignore_errors=True)
         shutil.rmtree(snapdir, ignore_errors=True)
+
+
+# phase I: the port's headline bench as a process; its fleet part at 2000
+# nodes, cut from the reference's 10,000 to keep the script's time
+BENCH_FLEET_NODES = 2000
+BENCH_TIMEOUT_S = 600
+
+
+def find_errors(tree, path: str = "") -> list:
+    """Every ``error`` key in a doc, by its path."""
+    out = []
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            if k == "error":
+                out.append(f"{path}: {v}")
+            out += find_errors(v, f"{path}.{k}" if path else k)
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            out += find_errors(v, f"{path}[{i}]")
+    return out
+
+
+def bench_phase(card: str, n_cards: int) -> dict:
+    """Phase I: ``python -m tpu_operator_torch.bench`` as a process on the
+    card(s). Its one JSON line must parse; the matmul proof (one card) or
+    the all-reduce (several) must be correct, and on one card the triad
+    too; no part may carry an ``error``; the rider's scale part must be
+    ready with no apiserver request left once cached, and both rollouts
+    must have rolled. The triad's launches in that process come from its
+    stderr's ``# kernels:`` line."""
+    env = dict(container_base_env(None),
+               GPUOP_BENCH_FLEET_NODES=str(BENCH_FLEET_NODES))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "tpu_operator_torch.bench"],
+                         env=env, capture_output=True, text=True,
+                         timeout=BENCH_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    lines = [ln for ln in out.stdout.strip().splitlines() if ln.strip()]
+    launches = {"triad": 0}
+    for ln in out.stderr.splitlines():
+        if ln.startswith("# kernels: "):
+            launches = json.loads(ln[len("# kernels: "):])
+    log(f"  rc={out.returncode} in {secs:.1f}s ({card}); the line:")
+    log("  " + (lines[-1] if lines else "<none>"))
+    log(f"  kernel launches in the bench's process: {launches}")
+    if out.returncode != 0 or len(lines) != 1:
+        raise RuntimeError(f"the bench exited {out.returncode} with "
+                           f"{len(lines)} stdout lines: "
+                           f"{out.stderr[-2000:]}")
+    doc = json.loads(lines[0])
+    errors = find_errors(doc)
+    if errors:
+        raise RuntimeError(f"the bench's line carries errors: {errors}")
+    want = ("validator_matmul_tensor_core_utilization" if n_cards == 1
+            else "validator_nvlink_allreduce_fraction_of_peak")
+    if doc["metric"] != want:
+        raise RuntimeError(f"the bench's metric is {doc['metric']!r}, not "
+                           f"{want!r} (an _invalid suffix is a failed check)")
+    if n_cards == 1:
+        triad = doc["hbm_triad"]
+        if triad["metric"] != "validator_hbm_triad_fraction_of_peak":
+            raise RuntimeError(f"the bench's triad: {triad}")
+        if launches["triad"] == 0:
+            raise RuntimeError("the bench's HBM figure did not launch the "
+                               "triad kernel")
+    cp = doc["controlplane"]
+    if not cp["ready"] or cp["steady_requests_cached"] != 0:
+        raise RuntimeError(f"the scale part: ready {cp['ready']}, "
+                           f"{cp['steady_requests_cached']} cached requests")
+    if not (cp["rollout"]["rolled"] and cp["rollout_edge"]["rolled"]):
+        raise RuntimeError(f"the rollout did not roll: {cp['rollout']} "
+                           f"{cp['rollout_edge']}")
+    if doc["install_to_ready_seconds"] != cp["install_to_ready_s"]:
+        raise RuntimeError("install_to_ready_seconds is not the rider's")
+    return {"card": card, "seconds": secs, "line": doc,
+            "triad_launches": launches["triad"]}
+
+
+# phase J: the stages a node walks in a driver rollout, in order
+ROLLOUT_STAGES = ["upgrade-required", "cordon-required", "migrate-required",
+                  "drain-required", "pod-restart-required",
+                  "validation-required", "uncordon-required", "done"]
+ROLLOUT_TIMEOUT_S = 600
+ROLLOUT_WORKLOAD = "training-job"
+
+
+def driver_version() -> str:
+    """The driver version the card runs, as nvidia-smi reports it."""
+    return smi_query("driver_version")[0][0]
+
+
+def rollout_phase(torch, card: str, client, mgr, api, base: dict,
+                  scripts: dict, valdir: str) -> dict:
+    """Phase J: a driver rollout under phase H's restarted manager. A
+    GPUDriver takes the card's pool (the policy's driver state stands
+    down) and the policy turns auto-upgrade on; a workload pod asks for
+    the cards on the node; the GPUDriver's driverVersion is then set to
+    the version the card runs, which changes the driver's template, so
+    the upgrade FSM must roll the node. A kubelet thread plays the pods
+    the FSM deletes: once the node is in validation, the recreated driver
+    pod (gpu-driver-manager preflight closes every gate, gpu-driver-install
+    proves the pinned version), then the recreated validator pod's init
+    containers (hbm-validation's child launches the triad), then marks
+    them ready. The node's upgrade.state transitions, the pod events and
+    the FSM's evictions are recorded as they happen."""
+    from tpu_operator_torch.api import labels as L
+    from tpu_operator_torch.api.clusterpolicy import KIND_CLUSTER_POLICY, V1
+    from tpu_operator_torch.api.gpudriver import (KIND_GPU_DRIVER, V1ALPHA1,
+                                                  new_gpu_driver)
+    from tpu_operator_torch.runtime.objects import labels_of, thaw_obj
+    from tpu_operator_torch.state.nodepool import get_node_pools
+
+    t_start = time.perf_counter()
+    lock = threading.Lock()
+    transitions, pod_events, evictions = [], [], []
+
+    def on_node(event):
+        if event.obj["metadata"]["name"] != RECONCILE_NODE:
+            return
+        state = labels_of(event.obj).get(L.UPGRADE_STATE)
+        with lock:
+            if not transitions or transitions[-1][1] != state:
+                transitions.append((time.perf_counter(), state))
+
+    def on_pod(event):
+        pod = event.obj
+        if (pod.get("spec") or {}).get("nodeName") != RECONCILE_NODE:
+            return
+        with lock:
+            pod_events.append((time.perf_counter(), event.type,
+                               pod["metadata"]["name"]))
+
+    unwatch = [client.watch("v1", "Node", on_node),
+               client.watch("v1", "Pod", on_pod)]
+    upgrader = next(c.reconciler for c in mgr.controllers
+                    if c.name == "gpu-upgrade")
+    inner_evict = upgrader.client.evict
+
+    def evict(name, namespace=None):  # the FSM's drain, recorded
+        with lock:
+            evictions.append((time.perf_counter(), f"{namespace}/{name}"))
+        return inner_evict(name, namespace)
+
+    upgrader.client.evict = evict
+
+    def state() -> str | None:
+        with lock:
+            return transitions[-1][1] if transitions else None
+
+    node = client.get("v1", "Node", RECONCILE_NODE)
+    [pool] = get_node_pools([node])
+    driver_ds = f"gpu-driver-{pool.name}"
+    kubelet_out = {}
+    try:
+        # J1. the GPUDriver takes the card's pool; auto-upgrade on
+        client.create(new_gpu_driver("card-pool", {
+            "nodeSelector": pool.selector}))
+        wait_for(lambda: client.get_or_none("apps/v1", "DaemonSet", driver_ds,
+                                            RECONCILE_NAMESPACE),
+                 f"the GPUDriver's DaemonSet {driver_ds}", 60)
+        policy = thaw_obj(client.get(V1, KIND_CLUSTER_POLICY,
+                                     "gpu-cluster-policy"))
+        policy["spec"]["upgradePolicy"] = {"autoUpgrade": True,
+                                           "maxParallelUpgrades": 1}
+        client.update(policy)
+        wait_for(lambda: client.get_or_none(
+            "apps/v1", "DaemonSet", "gpu-driver-daemonset",
+            RECONCILE_NAMESPACE) is None,
+            "the policy's driver state to stand down", 60)
+        client.simulate_kubelet(ready=True)
+        wait_for(lambda: (client.get(V1ALPHA1, KIND_GPU_DRIVER, "card-pool")
+                          .get("status") or {}).get("state") == "ready",
+                 "the GPUDriver to be ready", 60)
+        log(f"  J1: GPUDriver card-pool over pool {pool.name} "
+            f"({pool.selector}) ready, DaemonSet {driver_ds}; the policy's "
+            f"gpu-driver-daemonset stood down; autoUpgrade on")
+
+        # J2. a workload holds the node's cards
+        client.create({"apiVersion": "v1", "kind": "Pod", "metadata": {
+            "name": ROLLOUT_WORKLOAD, "namespace": "default"},
+            "spec": {"nodeName": RECONCILE_NODE, "containers": [{
+                "name": "train", "resources": {"requests": {
+                    L.GPU_RESOURCE: str(torch.cuda.device_count())}}}]},
+            "status": {"phase": "Running", "conditions": [
+                {"type": "Ready", "status": "True"}]}})
+
+        # the kubelet: once the FSM has deleted the node's driver and
+        # validator pods and waits in validation, play the recreated pods
+        def kubelet():
+            try:
+                wait_for(lambda: state() == "validation-required",
+                         "the node to enter validation", ROLLOUT_TIMEOUT_S)
+                kubelet_out["validation_at"] = time.perf_counter()
+                live = {p["metadata"]["name"] for p in client.list(
+                    "v1", "Pod") if p["spec"].get("nodeName") ==
+                    RECONCILE_NODE}
+                kubelet_out["pods_at_validation"] = sorted(live)
+                ds = client.get("apps/v1", "DaemonSet", driver_ds,
+                                RECONCILE_NAMESPACE)["spec"]["template"]["spec"]
+                stand_ins = {"GPU_VALIDATION_DIR": valdir, "HOST_ROOT": "/"}
+                driver = {}
+                for ctr, extra in ((ds["initContainers"][0], ()),
+                                   (ds["containers"][0], ("--no-park",))):
+                    env = {**base, **rendered_env(ctr, RECONCILE_NODE,
+                                                  RECONCILE_NAMESPACE),
+                           **stand_ins}
+                    res = container_process(ctr, scripts, env, extra)
+                    res["env"] = {k: v for k, v in env.items()
+                                  if k not in base}
+                    log(f"  the recreated driver pod's {ctr['name']}: "
+                        f"{ctr['command'] + ctr['args'] + list(extra)} rc="
+                        f"{res['rc']} in {res['seconds']:.3f}s, env "
+                        f"{res['env']} ({card})")
+                    if res["rc"] != 0:
+                        raise RuntimeError(f"{ctr['name']} failed: "
+                                           f"{res['stderr_tail']}")
+                    res.pop("stderr_tail")
+                    driver[ctr["name"]] = res
+                kubelet_out["driver"] = driver
+                pod = client.get("apps/v1", "DaemonSet",
+                                 "gpu-operator-validator",
+                                 RECONCILE_NAMESPACE)["spec"]["template"][
+                                     "spec"]
+                c0 = time.perf_counter()
+                kubelet_out["containers"] = play_init_containers(
+                    pod, base, stand_ins, api.url, scripts, card)
+                kubelet_out["chain_s"] = time.perf_counter() - c0
+                kubelet_out["marked_at"] = time.perf_counter()
+                client.simulate_kubelet(ready=True)
+            except BaseException as e:  # re-raised by the phase below
+                kubelet_out["error"] = e
+
+        th = threading.Thread(target=kubelet, name="smoke-kubelet-rollout",
+                              daemon=True)
+        th.start()
+
+        # J3. pin the driver version the card runs: the template changes
+        version = driver_version()
+        cr = thaw_obj(client.get(V1ALPHA1, KIND_GPU_DRIVER, "card-pool"))
+        cr["spec"]["driverVersion"] = version
+        t_bump = time.perf_counter()
+        client.update(cr)
+        wait_for(lambda: state() == "done" or "error" in kubelet_out,
+                 "the rollout to finish", ROLLOUT_TIMEOUT_S, 0.02)
+        t_done = time.perf_counter()
+        th.join(timeout=60)
+        if "error" in kubelet_out:
+            raise kubelet_out["error"]
+        if not mgr.wait_idle(timeout=60, horizon=1.0):
+            raise RuntimeError("the manager did not go idle after the "
+                               "rollout")
+    finally:
+        for u in unwatch:
+            u()
+        del upgrader.client.evict
+
+    # J4. what happened, in order
+    with lock:
+        seq = [s for _, s in transitions if s is not None]
+        stage_at = {s: t for t, s in transitions if s is not None}
+        events = list(pod_events)
+        evicted = list(evictions)
+    stage_s = {s: stage_at[b] - stage_at[s]
+               for s, b in zip(ROLLOUT_STAGES, ROLLOUT_STAGES[1:])
+               if s in stage_at and b in stage_at}
+    log(f"  J: upgrade.state transitions of {RECONCILE_NODE}: {seq}")
+    log(f"  rollout {t_done - t_bump:.3f} s from the driverVersion bump to "
+        f"done; seconds per stage {stage_s} ({card})")
+    log(f"  evictions {[e for _, e in evicted]}; the node's pod events "
+        f"{[(round(t - t_bump, 3), ty, n) for t, ty, n in events if t >= t_bump]}")
+    if seq != ROLLOUT_STAGES:
+        raise RuntimeError(f"the node walked {seq}, not {ROLLOUT_STAGES}")
+    workload = f"default/{ROLLOUT_WORKLOAD}"
+    if [e for _, e in evicted] != [workload] or \
+            client.get_or_none("v1", "Pod", ROLLOUT_WORKLOAD, "default"):
+        raise RuntimeError(f"the workload did not leave by eviction: "
+                           f"{evicted}")
+    deleted = {n: t for t, ty, n in events
+               if ty == "DELETED" and t >= t_bump}
+    added = {n: t for t, ty, n in events if ty == "ADDED" and t >= t_bump}
+    validator = f"gpu-operator-validator-{RECONCILE_NODE}"
+    driver_pod = f"{driver_ds}-{RECONCILE_NODE}"
+    for name in (validator, driver_pod):
+        if name not in deleted or name not in added:
+            raise RuntimeError(f"{name} was not deleted and recreated: "
+                               f"deleted {deleted}, added {added}")
+    hbm = kubelet_out["containers"]["hbm-validation"]
+    if not (deleted[validator] <= stage_at["validation-required"]
+            <= kubelet_out["marked_at"] <= added[validator]
+            <= stage_at["uncordon-required"]):
+        raise RuntimeError("validation did not wait for the recreated "
+                           "validator pod")
+    if hbm["triad_launches"] == 0:
+        raise RuntimeError("the recreated validator's hbm-validation did "
+                           "not launch the triad")
+    install = kubelet_out["driver"]["gpu-driver-installer"]
+    if install["env"].get("GPU_DRIVER_VERSION") != version:
+        raise RuntimeError(f"gpu-driver-install ran without the pinned "
+                           f"version: {install['env']}")
+    node = client.get("v1", "Node", RECONCILE_NODE)
+    if (node.get("spec") or {}).get("unschedulable"):
+        raise RuntimeError("the node ended cordoned")
+    log(f"  validation waited {added[validator] - stage_at['validation-required']:.3f} s "
+        f"for the recreated validator pod (its chain "
+        f"{kubelet_out['chain_s']:.3f} s wall; hbm-validation's child "
+        f"launched the triad {hbm['triad_launches']} times); "
+        f"gpu-driver-install proved driver {version}; the node ends "
+        f"uncordoned in done ({card})")
+    return {"card": card, "driver_version": version,
+            "rollout_s": t_done - t_bump, "stage_s": stage_s,
+            "stages": seq, "evictions": [e for _, e in evicted],
+            "chain_wall_s": kubelet_out["chain_s"],
+            "driver_pod": kubelet_out["driver"],
+            "containers": kubelet_out["containers"],
+            "pods_at_validation": kubelet_out["pods_at_validation"],
+            "triad_launches": hbm["triad_launches"],
+            "phase_s": time.perf_counter() - t_start}
 
 
 def main() -> int:
@@ -3231,10 +3574,28 @@ def main() -> int:
         raise RuntimeError("the reconcile launched a kernel in this process")
     log(json.dumps({"reconcile": reconcile}))
 
+    # I: the port's headline bench as a process. This process launches
+    # nothing in it; the bench's own process reports its triad count
+    hbm_probe.triad_.launches = 0
+    fa.flash_attention_blocks.launches = 0
+    log("# phase I: the port's headline bench (python -m "
+        "tpu_operator_torch.bench), the control-plane rider's fleet at "
+        f"{BENCH_FLEET_NODES} nodes")
+    torch.cuda.empty_cache()
+    headline = bench_phase(card, torch.cuda.device_count())
+    headline["launches_in_process"] = {
+        "triad": hbm_probe.triad_.launches,
+        "flash_attention": fa.flash_attention_blocks.launches}
+    if any(headline["launches_in_process"].values()):
+        raise RuntimeError("the bench launched a kernel in this process")
+    log(json.dumps({"bench": headline}))
+
     # H: the operator's runtime. The manager's watches drive the policy to
     # ready with no direct reconcile; its own modules launch no kernel, and
     # the validator pod the kubelet thread plays runs the triad in its
-    # hbm-validation child, whose launcher reports that process's count
+    # hbm-validation child, whose launcher reports that process's count.
+    # J, the driver rollout, runs under H's restarted manager, its counts
+    # set to 0 just before it and read just after
     hbm_probe.triad_.launches = 0
     fa.flash_attention_blocks.launches = 0
     log("# phase H: the operator's runtime (gpu-operator, the Manager's "
@@ -3242,17 +3603,39 @@ def main() -> int:
         "snapshots)")
     torch.cuda.empty_cache()
     h0 = operator_process_phase(card)
-    runtime = runtime_phase(torch, card)
+    launches_h = {}
+
+    def phase_j(**live):
+        launches_h.update(triad=hbm_probe.triad_.launches,
+                          flash_attention=fa.flash_attention_blocks.launches)
+        hbm_probe.triad_.launches = 0
+        fa.flash_attention_blocks.launches = 0
+        log("# phase J: a driver rollout under the manager (GPUDriver, the "
+            "upgrade FSM, eviction, the recreated driver and validator "
+            "pods on the card)")
+        figures = rollout_phase(torch, card, **live)
+        figures["launches_in_process"] = {
+            "triad": hbm_probe.triad_.launches,
+            "flash_attention": fa.flash_attention_blocks.launches}
+        log(f"  kernel launches in phase J: triad "
+            f"{figures['triad_launches']} in the recreated hbm-validation "
+            f"child; in this process {figures['launches_in_process']}")
+        if any(figures["launches_in_process"].values()):
+            raise RuntimeError("the rollout launched a kernel in this "
+                               "process")
+        return figures
+
+    runtime = runtime_phase(torch, card, rollout=phase_j)
+    rollout = runtime.pop("rollout")
     runtime["operator_process"] = h0
-    runtime["launches_in_process"] = {
-        "triad": hbm_probe.triad_.launches,
-        "flash_attention": fa.flash_attention_blocks.launches}
+    runtime["launches_in_process"] = launches_h
     log(f"  kernel launches in phase H: triad {runtime['triad_launches']} "
         f"in the hbm-validation child; in this process "
         f"{runtime['launches_in_process']}")
     if any(runtime["launches_in_process"].values()):
         raise RuntimeError("the runtime launched a kernel in this process")
     log(json.dumps({"runtime": runtime}))
+    log(json.dumps({"rollout": rollout}))
 
     # 14. the kernel table
     kernels = [{
@@ -3263,6 +3646,8 @@ def main() -> int:
         "launches": triad_launches,
         "launches_phase_g_child": reconcile["triad_launches"],
         "launches_phase_h_child": runtime["triad_launches"],
+        "launches_phase_i_bench": headline["triad_launches"],
+        "launches_phase_j_child": rollout["triad_launches"],
         "max_abs_err": triad_err,
         "tolerance": TRIAD_TOLERANCE,
         "ms": kernel_ms,

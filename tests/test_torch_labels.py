@@ -93,6 +93,11 @@ CONSTANTS = [
     ("STATE_LABEL", "STATE_LABEL"),
     ("UPGRADE_STATE", "UPGRADE_STATE"),
     ("DRIVER_UPGRADE_ENABLED", "DRIVER_UPGRADE_ENABLED"),
+    # the upgrade FSM's
+    ("UPGRADE_SKIP_DRAIN", "UPGRADE_SKIP_DRAIN"),
+    ("UPGRADE_STAGE_STARTED", "UPGRADE_STAGE_STARTED"),
+    ("UPGRADE_FAILED_AT", "UPGRADE_FAILED_AT"),
+    ("UPGRADE_FAILED_REASON", "UPGRADE_FAILED_REASON"),
     ("PSA_LABEL_PREFIX", "PSA_LABEL_PREFIX"),
     ("PSA_LEVEL_PRIVILEGED", "PSA_LEVEL_PRIVILEGED"),
 ]

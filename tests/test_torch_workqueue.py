@@ -221,3 +221,36 @@ def test_kill_shard_transfer_loses_no_key(dead):
     moved, _, causes = placed[1]
     assert moved > 0
     assert sum("failover-transfer" in cs for cs in causes.values()) >= moved - 1
+
+
+def delayed_runs(mod, monkeypatch) -> list:
+    """``add_after("k", 0.1)`` then ``add_after("k", 0.3)``, the clock
+    stepped to each due time and past it; every dequeue of ``k`` is
+    recorded with the clock's offset when it came out."""
+    clock = SteppedClock()
+    monkeypatch.setattr(mod, "time", types.SimpleNamespace(
+        monotonic=clock, sleep=lambda s: None))
+    q = mod.WorkQueue()
+    t0 = clock.t
+    q.add_after("k", 0.1)
+    q.add_after("k", 0.3)
+    runs = []
+    for offset in (0.05, 0.1, 0.2, 0.3, 0.4, 1.0):
+        clock.t = t0 + offset
+        while True:
+            item, _, _, _ = q.get_with_info(timeout=0)
+            if item is None:
+                break
+            runs.append((item, offset))
+            q.done(item)
+    q.shutdown()
+    return runs
+
+
+def test_delayed_requeues_of_one_key_are_not_merged(monkeypatch):
+    """ROADMAP.md §C's C6, kept: each delayed copy of a key runs, so two
+    add_after calls give two runs, at 0.1 s and at 0.3 s, in both
+    packages (client-go's delaying queue would keep one entry)."""
+    ref = delayed_runs(rwq, monkeypatch)
+    port = delayed_runs(wq, monkeypatch)
+    assert port == ref == [("k", 0.1), ("k", 0.3)]

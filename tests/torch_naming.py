@@ -190,9 +190,79 @@ NODE_WATCH = {
 }
 NODE_WATCH_ADDED = ("cloud.google.com/gke-accelerator-count",)
 
+# --- the driver CR, its pools and its rollout ------------------------------
+# the pool key: GKE's TPU accelerator x topology -> feature discovery's
+# product x topology (state/nodepool.py); slice identity inside a pool
+# stays GKE's nodepool label
+POOL_KEY = {"cloud.google.com/gke-tpu-accelerator": "gpu.graft.dev/gpu.product",
+            "cloud.google.com/gke-tpu-topology": "gpu.graft.dev/gpu.topology"}
+# a per-pool driver DaemonSet: tpu-libtpu-driver-<pool> ->
+# gpu-driver-<pool>, and its state label on the objects
+DRIVER_DS_PREFIX = ("tpu-libtpu-driver-", "gpu-driver-")
+DRIVER_STATE_PREFIX = ("tpu-driver-", "gpu-driver-")
+# the driver CR's spec: the renamed field (libtpu's channel -> the NVML
+# driver version) and the defaults that change; every other field keeps
+# its name and default
+DRIVER_SPEC_FIELDS = {"channel": "driverVersion"}
+DRIVER_SPEC_DEFAULTS = {
+    "driverType": ("libtpu", "driver"),
+    "image": ("libtpu-installer", "gpu-driver-installer"),
+    "installDir": ("/home/kubernetes/bin", "/usr/local/nvidia/lib64"),
+    "channel": ("stable", None),
+}
+# the upgrade FSM's labels and annotations (each under label_key's rule:
+# the domain alone changes)
+UPGRADE_LABELS = ("tpu.graft.dev/upgrade.state",
+                  "tpu.graft.dev/upgrade.skip-drain",
+                  "tpu.graft.dev/upgrade.stage-started",
+                  "tpu.graft.dev/upgrade.failed-at",
+                  "tpu.graft.dev/upgrade.failed-reason",
+                  "tpu.graft.dev/driver-upgrade-enabled")
+UPGRADE = {
+    "tpu-upgrade": "gpu-upgrade",              # the controller, metric label
+    "_tpu_workload_pods_by_node": "_gpu_workload_pods_by_node",
+    "_tpu_workload_pods_on": "_gpu_workload_pods_on",
+}
+# the FSM's event and failure texts
+UPGRADE_TEXT = (("New libtpu revision validated",
+                 "New driver revision validated"),
+                ("remaining TPU pods", "remaining GPU pods"))
+
+# --- the benchmarks -----------------------------------------------------------
+# the headline's env knobs that the port has (the rest name benchmarks
+# of modules not ported, or the reference's child process)
+BENCH_ENV = {"TPUOP_BENCH_SKIP_SCALE": "GPUOP_BENCH_SKIP_SCALE",
+             "TPUOP_BENCH_SCALE_NODES": "GPUOP_BENCH_SCALE_NODES",
+             "TPUOP_BENCH_FLEET_NODES": "GPUOP_BENCH_FLEET_NODES",
+             "TPUOP_BENCH_SKIP_FLEET": "GPUOP_BENCH_SKIP_FLEET"}
+# result keys and metric names
+BENCH_KEYS = {"n_tpu_nodes": "n_gpu_nodes", "n_tpu": "n_gpu",
+              "baseline_tpu": "baseline_gpu"}
+BENCH_METRICS = {
+    "validator_matmul_mxu_utilization":
+        "validator_matmul_tensor_core_utilization",
+    "validator_ici_allreduce_fraction_of_peak":
+        "validator_nvlink_allreduce_fraction_of_peak",
+    "validator_ici_allreduce_bus_bandwidth":
+        "validator_nvlink_allreduce_bus_bandwidth",
+    "fraction_of_ici_peak": "fraction_of_nvlink_peak",
+}
+# build_cluster's pool mix, row by row, shares and CPU_FRACTION unchanged:
+# (accelerator, topology, chips) -> (accelerator, product, topology, cards)
+POOL_MIX = {
+    ("tpu-v5p-slice", "2x2x1", 4):
+        ("nvidia-h100-80gb", "NVIDIA-H100-80GB-HBM3", "nvswitch-8", 8),
+    ("tpu-v5p-slice", "4x4x4", 4):          # the multi-host pool
+        ("nvidia-gb200", "NVIDIA-GB200", "mnnvl-4", 4),
+    ("tpu-v5e-slice", "2x4", 4):
+        ("nvidia-h100-80gb", "NVIDIA-H100-80GB-HBM3", "nvswitch-4", 4),
+    ("tpu-v4-podslice", "2x2x1", 4):
+        ("nvidia-a100-80gb", "NVIDIA-A100-SXM4-80GB", "nvswitch-8", 8),
+}
+
 EXACT = {**CRD, **STATES, **OBJECTS, **CONTAINERS, **PATHS, **COMMANDS,
          **ARGS, **ENV, **RESOURCES, **PROFILES, **CARDS, **ALERTS,
-         **RUNTIME}
+         **RUNTIME, **UPGRADE}
 
 
 def label_key(value: str) -> str:

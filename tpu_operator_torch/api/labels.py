@@ -39,6 +39,7 @@ DEVICE_PLUGIN_CONFIG = f"{DOMAIN}/device-plugin.config"  # per-node plugin confi
 GPU_GENERATION = f"{DOMAIN}/gpu.generation"      # hardware.CHIPS key, h100-sxm
 GPU_CHIP_COUNT = f"{DOMAIN}/gpu.chips"            # cards on the node
 UPGRADE_STATE = f"{DOMAIN}/upgrade.state"         # upgrade controller FSM label
+UPGRADE_SKIP_DRAIN = f"{DOMAIN}/upgrade.skip-drain"
 
 # --- feature-discovery labels (stamped by the on-node agent only) ----------
 GPU_TOPOLOGY = f"{DOMAIN}/gpu.topology"           # <fabric>-<cards>, nvswitch-8
@@ -51,6 +52,10 @@ FEATURE_LABELS = (GPU_TOPOLOGY, GPU_PRODUCT, GPU_MEMORY_GB, GPU_NVLINK_GBPS,
                   GPU_MULTIHOST, DRIVER_VERSION)
 
 # --- annotations -----------------------------------------------------------
+# upgrade FSM bookkeeping (deadlines survive operator restarts)
+UPGRADE_STAGE_STARTED = f"{DOMAIN}/upgrade.stage-started"
+UPGRADE_FAILED_AT = f"{DOMAIN}/upgrade.failed-at"       # epoch of failure
+UPGRADE_FAILED_REASON = f"{DOMAIN}/upgrade.failed-reason"
 LAST_APPLIED_HASH = f"{DOMAIN}/last-applied-hash"
 # stable hash of the rendered desired object: a live object carrying it
 # AND matching the desired spec is skipped without any apiserver verb

@@ -2,8 +2,8 @@
 
 The port's counterpart of ``tpu_operator/cli/operator.py``, with the same
 flags (``--fake-gpu-nodes`` for ``--fake-tpu-nodes``). It registers the
-GPUClusterPolicy reconciler; the driver CRD's, the upgrade controller's
-and placement's reconcilers join it as they are ported.
+GPUClusterPolicy, GPUDriver and driver-upgrade reconcilers; placement's
+joins them when it is ported.
 
 Run against a real cluster (in-cluster config or kubeconfig):
 
@@ -100,10 +100,13 @@ def wire_manager(client, args, snapshot_dir=None):
     """The manager over ``client`` as the operator runs it: reads through
     the informer cache (unless ``--no-cache``), the spec-hash and DAG
     gates set from the flags, every verb traced (unless ``--no-trace``),
-    and the GPUClusterPolicy reconciler registered. ``snapshot_dir``
+    and the GPUClusterPolicy, GPUDriver and upgrade reconcilers
+    registered, in the reference's order. ``snapshot_dir``
     overrides ``OPERATOR_SNAPSHOT_DIR``. Returns the manager, not yet
     started."""
     from ..controllers.clusterpolicy_controller import ClusterPolicyReconciler
+    from ..controllers.gpudriver_controller import GPUDriverReconciler
+    from ..controllers.upgrade_controller import UpgradeReconciler
     from ..runtime import Manager
 
     # controllers read through the informer cache by default; the raw
@@ -138,9 +141,10 @@ def wire_manager(client, args, snapshot_dir=None):
                   leader_elect=args.leader_elect,
                   write_qps=args.write_qps,
                   snapshot_dir=snapshot_dir)
-    mgr.add_reconciler(
-        ClusterPolicyReconciler(client=api, namespace=args.namespace),
-        workers=args.workers, shards=args.shards)
+    for rec in (ClusterPolicyReconciler, GPUDriverReconciler,
+                UpgradeReconciler):
+        mgr.add_reconciler(rec(client=api, namespace=args.namespace),
+                           workers=args.workers, shards=args.shards)
     return mgr
 
 

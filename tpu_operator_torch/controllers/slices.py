@@ -13,18 +13,39 @@ A slice is ``validated`` only when EVERY host's validation-gate pod is
 Ready (grouped readiness). Terminating pods don't count: a dying
 validator's Ready=True is the OLD proof, not a re-validation. Single-host
 pools are not listed: their readiness is already the per-state status.
-The elastic-migration half of the reference's module comes with the
-placement engine.
+
+Of the reference's elastic-migration half (``:163-464``) the port has the
+request lookup the upgrade FSM's migrate stage runs (``request_key``,
+``migration_of``, ``placed_requests_on``) and a ``SliceMigrator`` that
+answers for a unit no Placed SliceRequest is bound to. Moving a bound
+request (checkpoint, ``find_replacement``, rebind) needs placement and
+the elastic workload, which are not ported: the migrator raises
+``MigrationNotPortedError`` there rather than let the unit fall to a hard
+drain the reference would not take.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+import time
+from typing import Callable, Iterable, List, Optional
 
 from ..api import labels as L
+from ..api.clusterpolicy import GROUP
 from ..runtime.client import Client, ListOptions
-from ..runtime.objects import get_nested, labels_of, name_of, pod_ready
+from ..runtime.objects import (
+    get_nested,
+    labels_of,
+    name_of,
+    namespace_of,
+    pod_ready,
+)
 from ..state.nodepool import get_node_pools, slices_of
+
+# the SliceRequest CRD (the reference's api/slicerequest.py): its group
+# version, kind and the phase of a bound request
+V1ALPHA1 = f"{GROUP}/v1alpha1"
+KIND_SLICE_REQUEST = "SliceRequest"
+PHASE_PLACED = "Placed"
 
 MAX_ROWS = 100  # status-size bound; rows are sorted, so truncation is stable
 
@@ -96,3 +117,60 @@ def slice_status(client: Client, namespace: str,
             })
     rows.sort(key=lambda r: r["id"])
     return rows
+
+
+# --- the elastic migrate stage's request lookup ---------------------------
+
+
+def request_key(cr: dict) -> str:
+    return f"{namespace_of(cr) or 'default'}/{name_of(cr)}"
+
+
+def migration_of(cr: dict) -> dict:
+    return dict(get_nested(cr, "status", "migration", default={}) or {})
+
+
+def placed_requests_on(client: Client, node_names: Iterable[str]) -> List[dict]:
+    """Placed SliceRequests whose binding intersects ``node_names``,
+    sorted by key for deterministic processing order."""
+    wanted = set(node_names)
+    out = []
+    for cr in client.list(V1ALPHA1, KIND_SLICE_REQUEST):
+        if get_nested(cr, "status", "phase") != PHASE_PLACED:
+            continue
+        bound = get_nested(cr, "status", "nodes", default=[]) or []
+        if wanted.intersection(bound):
+            out.append(cr)
+    out.sort(key=request_key)
+    return out
+
+
+class MigrationNotPortedError(RuntimeError):
+    """A Placed SliceRequest is bound to a draining unit: moving it needs
+    the placement engine and the elastic workload (ROADMAP.md §A item 3),
+    which the port does not have yet."""
+
+
+class SliceMigrator:
+    """The migrate stage of the upgrade FSM.
+
+    ``ready_to_drain`` lists the SliceRequests as the reference's does
+    and returns True when no Placed request is bound to the unit, as the
+    reference's returns there. A bound request would take the
+    checkpoint-and-rebind handshake, which is not ported: it raises
+    :class:`MigrationNotPortedError`, never a silent hard drain."""
+
+    def __init__(self, client: Client, now: Callable[[], float] = time.time):
+        self.client = client
+        self.now = now
+
+    def ready_to_drain(self, unit_nodes: List[str], deadline: float) -> bool:
+        bound = placed_requests_on(self.client, unit_nodes)
+        if bound:
+            raise MigrationNotPortedError(
+                "SliceRequest(s) "
+                + ", ".join(request_key(cr) for cr in bound)
+                + f" placed on draining unit {sorted(unit_nodes)}: the "
+                "elastic migration needs placement and the elastic "
+                "workload (ROADMAP.md §A item 3), not ported")
+        return True

@@ -1,14 +1,14 @@
 """The operator's runtime: the client contract, the in-memory fake
 apiserver, the informer cache, the workqueue, tracing, and the manager
 that drives reconcilers from watch events (the reference's
-``tpu_operator/runtime/__init__.py`` exports, less ``EvictionBlockedError``,
-which comes with the upgrade controller)."""
+``tpu_operator/runtime/__init__.py`` exports)."""
 
 from .client import (  # noqa: F401
     AlreadyExistsError,
     ApiError,
     Client,
     ConflictError,
+    EvictionBlockedError,
     InvalidError,
     ListOptions,
     NotFoundError,

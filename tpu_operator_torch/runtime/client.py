@@ -6,8 +6,10 @@ hierarchy for every client of the port. Two implementations exist:
 - ``tpu_operator_torch.runtime.fake.FakeClient`` — an in-memory apiserver
   with resourceVersions, label selectors, watches and a kubelet/DaemonSet
   simulator: the substrate the reconcile path is driven on.
-- ``tpu_operator_torch.runtime.kubeclient.InClusterClient`` — the pod's
-  own apiserver over ``urllib``, with the verbs the node agents use.
+- ``tpu_operator_torch.runtime.kubeclient.HTTPClient`` — a real apiserver
+  client over ``urllib`` (kubeconfig or in-cluster service account);
+  ``InClusterClient`` is the pod's own apiserver, with the verbs the node
+  agents use.
 
 Objects are plain dicts shaped like Kubernetes JSON. All methods raise
 ``ApiError`` subclasses on failure, mirroring apierrors.IsNotFound-style
@@ -51,6 +53,13 @@ class ConflictError(ApiError):
 
 class InvalidError(ApiError):
     code = 422
+
+
+class EvictionBlockedError(ApiError):
+    """Eviction denied by a PodDisruptionBudget (HTTP 429 from the
+    pods/eviction subresource)."""
+
+    code = 429
 
 
 class TooManyRequestsError(ApiError):
@@ -201,6 +210,21 @@ class Client(abc.ABC):
         except NotFoundError:
             return None
 
+    def evict(self, name: str, namespace: Optional[str] = None) -> None:
+        """Evict a pod through the Eviction API semantics: the eviction is
+        DENIED (EvictionBlockedError, 429) while a PodDisruptionBudget
+        selecting the pod has no disruptions left. The base implementation
+        enforces PDBs client-side (what the apiserver's eviction
+        subresource does server-side); HTTPClient overrides with a real
+        POST to pods/eviction."""
+        pod = self.get("v1", "Pod", name, namespace)
+        blocker = _blocking_pdb(self, pod)
+        if blocker is not None:
+            raise EvictionBlockedError(
+                f"cannot evict pod {namespace or ''}/{name}: disruption "
+                f"budget {blocker} needs more healthy pods")
+        self.delete("v1", "Pod", name, namespace)
+
     def apply(self, obj: dict) -> dict:
         """Create-or-replace (last-write-wins), used by bootstrap paths. The
         state engine uses its own hash-gated create-or-update instead
@@ -218,6 +242,67 @@ class Client(abc.ABC):
         meta.setdefault("uid", existing["metadata"].get("uid"))
         merged["metadata"] = meta
         return self.update(merged)
+
+
+def _resolve_budget_count(value, total: int) -> int:
+    """minAvailable/maxUnavailable may be an absolute int or "N%" of the
+    matching pod count; percentages round UP for both fields, matching the
+    disruption controller's scale-with-round-up behavior."""
+    if isinstance(value, str) and value.endswith("%"):
+        pct = int(value[:-1])
+        return (total * pct + 99) // 100
+    return int(value)
+
+
+def _blocking_pdb(client: "Client", pod: dict) -> Optional[str]:
+    """Name of a PodDisruptionBudget that currently blocks evicting
+    ``pod``, or None. Uses status.disruptionsAllowed when the disruption
+    controller maintains it; else computes from spec the way the
+    controller would (healthy = Ready pods matching the selector)."""
+    from .objects import get_nested, labels_of, match_labels, name_of, namespace_of
+
+    ns = namespace_of(pod)
+    try:
+        pdbs = client.list("policy/v1", "PodDisruptionBudget",
+                           ListOptions(namespace=ns))
+    except NotFoundError:
+        return None
+    if not pdbs:
+        return None
+    pod_labels = labels_of(pod)
+
+    def is_ready(p: dict) -> bool:
+        return any(c.get("type") == "Ready" and c.get("status") == "True"
+                   for c in get_nested(p, "status", "conditions",
+                                       default=[]) or [])
+
+    for pdb in pdbs:
+        # full LabelSelector (matchLabels AND matchExpressions), like the
+        # real disruption controller
+        sel = get_nested(pdb, "spec", "selector", default=None)
+        if not sel or not match_labels(pod_labels, sel):
+            continue
+        allowed = get_nested(pdb, "status", "disruptionsAllowed")
+        if allowed is None:
+            matching = [p for p in client.list("v1", "Pod",
+                                               ListOptions(namespace=ns))
+                        if match_labels(labels_of(p), sel)
+                        and not get_nested(p, "metadata", "deletionTimestamp")]
+            healthy = sum(1 for p in matching if is_ready(p))
+            spec = pdb.get("spec") or {}
+            if spec.get("minAvailable") is not None:
+                need = _resolve_budget_count(spec["minAvailable"],
+                                             len(matching))
+                allowed = healthy - need
+            elif spec.get("maxUnavailable") is not None:
+                cap = _resolve_budget_count(spec["maxUnavailable"],
+                                            len(matching))
+                allowed = cap - (len(matching) - healthy)
+            else:
+                allowed = 1
+        if allowed <= 0:
+            return name_of(pdb)
+    return None
 
 
 def merge_patch(base: dict, patch: Mapping) -> dict:

@@ -9,8 +9,8 @@ over the standard library where the reference's is over ``requests``:
   update, ``update_status``, merge patch, delete), retries a 429 the way
   client-go does (``close()`` interrupts the wait), and watches in a
   thread that resumes from the last resourceVersion after a dropped
-  stream and relists on 410 Gone. ``evict`` comes with the upgrade
-  controller.
+  stream and relists on 410 Gone. ``evict`` posts the ``policy/v1``
+  Eviction subresource; its 429 is ``EvictionBlockedError``.
 - ``InClusterClient`` is the pods' and node agents' small client: get,
   create and delete a pod; get a node (whole, or its metadata alone),
   list nodes and merge-patch one, on the service account's token and CA
@@ -43,6 +43,7 @@ from .client import (
     ApiError,
     Client,
     ConflictError,
+    EvictionBlockedError,
     InvalidError,
     ListOptions,
     NotFoundError,
@@ -594,6 +595,22 @@ class HTTPClient(Client):
         resp = self._send("delete",
                           self._url(api_version, kind, name, namespace))
         self._raise_for(resp, f"delete {kind}/{name}")
+
+    def evict(self, name, namespace=None):
+        """POST to the pods/eviction subresource — the apiserver enforces
+        PodDisruptionBudgets server-side and answers 429 while the budget
+        has no disruptions left. Sent once: that 429 is an answer, not
+        the throttling ``_send`` retries."""
+        ns = namespace or self.config.namespace
+        body = {"apiVersion": "policy/v1", "kind": "Eviction",
+                "metadata": {"name": name, "namespace": ns}}
+        resp = self._request(
+            "post", self._url("v1", "Pod", name, ns, "eviction"),
+            body=json.dumps(body).encode())
+        if resp.status_code == 429:
+            raise EvictionBlockedError(
+                f"evict {ns}/{name}: {resp.text[:300]}")
+        self._raise_for(resp, f"evict pod/{name}")
 
     # -- watch -------------------------------------------------------------
 

@@ -97,7 +97,7 @@ class ThrottledWriteClient:
     ``client_write_throttle_seconds_total``."""
 
     _WRITE_VERBS = ("create", "update", "update_status", "patch",
-                    "delete")
+                    "delete", "evict")
 
     def __init__(self, inner: Client, budget: WriteBudget, controller: str):
         self.inner = inner

@@ -380,8 +380,7 @@ class TracingClient(Client):
     or closed-cache stack) is ``source=api``. Non-verb surface (informer
     indexes, ``cache_reads``/``relists`` counters, ``close``...) delegates
     to the wrapped client via ``__getattr__``, so callers see the cache
-    exactly as before. The port's clients have no ``evict`` (it comes
-    with the upgrade controller), so neither has this wrapper."""
+    exactly as before."""
 
     def __init__(self, inner: Client, tracer: Optional[Tracer] = None):
         self.inner = inner
@@ -458,6 +457,15 @@ class TracingClient(Client):
         return self._call(
             "delete", kind, "api",
             lambda: self.inner.delete(api_version, kind, name, namespace),
+            target=name)
+
+    def evict(self, name, namespace=None):
+        # delegate (HTTPClient has a real eviction POST; CachedClient
+        # inherits the client-side PDB check) so semantics are exactly
+        # the unwrapped stack's — this layer only times and tags it
+        return self._call(
+            "evict", "Pod", "api",
+            lambda: self.inner.evict(name, namespace),
             target=name)
 
     def watch(self, api_version, kind, handler, since_rv=None):
