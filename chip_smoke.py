@@ -20,8 +20,10 @@ behind the device plugin. The operator's reconcile renders the validator
 DaemonSet, whose init containers run on the card as processes, first
 driven pass by pass and then by the operator's runtime (the Manager's
 watches, workqueue and informer cache); under that runtime a driver CR's
-rollout walks the node through the upgrade FSM, and the port's headline
-bench runs as a process. Phases, each fatal:
+rollout walks the node through the upgrade FSM, a SliceRequest is placed
+and the burn-in trainer on it is carried through a second rollout by the
+elastic handshake, and the port's headline bench runs as a process.
+Phases, each fatal:
 
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
 2. build the hand-written kernels from the checkout's sources, one nvcc
@@ -141,11 +143,14 @@ H. the operator's runtime: ``gpu-operator --fake-cluster --once
    restart from the snapshot written at stop: restored, converged, no
    write but the Lease's;
 I (before H). ``python -m tpu_operator_torch.bench`` as a process, its
-   rider's fleet at 2000 nodes: one JSON line that parses; the matmul
-   proof (one card) or the all-reduce (several) correct, and the triad
-   on one card; no ``error`` anywhere in it; the scale part ``ready``
-   with no request left once cached; both rollouts rolled. The line and
-   the triad's launches in the bench's process are printed;
+   rider's fleet, placement-fleet and restart parts at 2000 nodes: one
+   JSON line that parses; the matmul proof (one card) or the all-reduce
+   (several) correct, and the triad on one card; no ``error`` anywhere
+   in it; the scale part ``ready`` with no request left once cached;
+   both rollouts rolled; scored placement packing at least as well as
+   first fit, the elastic migration losing no acked step, warm and cold
+   restarts deciding alike, the fair policy fairer than the baseline.
+   The line and the triad's launches in the bench's process are printed;
 J (under H's restarted manager). A GPUDriver over the card's pool (the
    policy's driver state stands down), auto-upgrade on, a workload pod
    holding the cards, then the GPUDriver's driverVersion set to the
@@ -158,6 +163,27 @@ J (under H's restarted manager). A GPUDriver over the card's pool (the
    validator pod's init containers on the card (hbm-validation's child
    launches the triad), and validation waits for that pod; the node ends
    uncordoned. Seconds from the version change to done, and a stage;
+K (after J, under the same manager, now with ``sliceplacement``). A
+   second node of the card's pool joins (the card's product and topology
+   labels, its cards allocatable, its rollouts paused), its validator pod
+   played on the card by a kubelet thread; a SliceRequest for the card's
+   count is placed on the first node by watch events alone, with a
+   ``placed-by`` lease; the burn-in trainer at ``BurninConfig``'s
+   defaults runs in a process on the card under the port's
+   ``ElasticWorkload`` over ``DCPCheckpointStore`` (exactly
+   ``steps_per_tick`` train steps a tick; the trainer reaches the
+   FakeClient through a bridge on 127.0.0.1); unpinning the GPUDriver's
+   ``driverVersion`` walks the placed node into migrate-required, where
+   the migrator posts the intent, the trainer checkpoints and acks,
+   ``find_replacement`` rebinds the request onto the second node, and a
+   new trainer process restores the acked step there (Resumed); the FSM
+   then drains (the trainer's pod evicted after the rebind), revalidates
+   through the recreated validator pod on the card and ends in done. The
+   stages and migration phases in order, the acked step restored, the
+   binding and leases moved, and the nine losses after the resume equal
+   (``torch.equal``) an uninterrupted run's from the same seed; ms of the
+   placement, s from intent to ack, ms from ack to rebind, s from rebind
+   to resumed, and s from the version change to done against J's;
 14. print the kernel table as one JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``; on any failure the
@@ -2396,16 +2422,18 @@ def operand_waits(client, base: dict, stand_ins: dict, scripts: dict,
 
 
 def play_init_containers(pod: dict, base: dict, stand_ins: dict,
-                         api_url: str, scripts: dict, card: str) -> dict:
-    """The validator pod's init containers in order, each its command's
-    [project.scripts] target as a process; each must exit 0 and write its
-    barrier file. plugin-validation reaches the stub apiserver."""
+                         api_url: str, scripts: dict, card: str,
+                         node: str = RECONCILE_NODE) -> dict:
+    """The validator pod's init containers on ``node`` in order, each its
+    command's [project.scripts] target as a process; each must exit 0 and
+    write its barrier file. plugin-validation reaches the stub
+    apiserver."""
     from tpu_operator_torch.validator import barrier
 
     containers = {}
     for ctr in pod["initContainers"]:
-        env = {**base, **rendered_env(ctr, RECONCILE_NODE,
-                                      RECONCILE_NAMESPACE), **stand_ins}
+        env = {**base, **rendered_env(ctr, node, RECONCILE_NAMESPACE),
+               **stand_ins}
         if ctr["name"] == "plugin-validation":
             env["SMOKE_APISERVER"] = api_url
         shown = {k: v for k, v in env.items() if k not in base}
@@ -2665,6 +2693,12 @@ def wait_for(pred, what: str, timeout: float, poll: float = 0.05):
 def histogram_count(text: str, name: str, controller: str) -> float:
     return prom_series(text).get(
         (name + "_count", (("controller", controller),)), 0.0)
+
+
+def histogram_total(text: str, name: str, part: str) -> float:
+    """A histogram's ``_count`` or ``_sum`` over every label set."""
+    return sum(v for (n, _), v in prom_series(text).items()
+               if n == name + part)
 
 
 def operator_process_phase(card: str) -> dict:
@@ -2980,8 +3014,10 @@ def runtime_phase(torch, card: str, extra_env: dict | None = None,
         shutil.rmtree(snapdir, ignore_errors=True)
 
 
-# phase I: the port's headline bench as a process; its fleet part at 2000
-# nodes, cut from the reference's 10,000 to keep the script's time
+# phase I: the port's headline bench as a process; its fleet, placement-
+# fleet and restart parts at 2000 nodes, cut from the reference's 10,000
+# to keep the script's time (each takes 70-90 s of one host CPU at
+# 10,000)
 BENCH_FLEET_NODES = 2000
 BENCH_TIMEOUT_S = 600
 
@@ -3009,7 +3045,9 @@ def bench_phase(card: str, n_cards: int) -> dict:
     must have rolled. The triad's launches in that process come from its
     stderr's ``# kernels:`` line."""
     env = dict(container_base_env(None),
-               GPUOP_BENCH_FLEET_NODES=str(BENCH_FLEET_NODES))
+               GPUOP_BENCH_FLEET_NODES=str(BENCH_FLEET_NODES),
+               GPUOP_BENCH_PLACEMENT_FLEET_NODES=str(BENCH_FLEET_NODES),
+               GPUOP_BENCH_RESTART_NODES=str(BENCH_FLEET_NODES))
     t0 = time.perf_counter()
     out = subprocess.run([sys.executable, "-m", "tpu_operator_torch.bench"],
                          env=env, capture_output=True, text=True,
@@ -3052,6 +3090,15 @@ def bench_phase(card: str, n_cards: int) -> dict:
                            f"{cp['rollout_edge']}")
     if doc["install_to_ready_seconds"] != cp["install_to_ready_s"]:
         raise RuntimeError("install_to_ready_seconds is not the rider's")
+    # the placement parts' claims: scored packing at least first fit's, no
+    # acked step lost by the elastic migration, warm and cold restarts
+    # deciding alike, the fair policy fairer than the priority baseline
+    if cp["fleet_utilization"] < cp["fleet_utilization_first_fit"] or \
+            cp["migration"]["elastic_lost_steps"] != 0 or \
+            not cp["restart"]["decisions_agree"] or \
+            cp["fairness_jain_index"] <= cp["fairness"]["jain_baseline"]:
+        raise RuntimeError(f"a placement part's claim fails: "
+                           f"{ {k: cp[k] for k in ('placement', 'migration', 'restart', 'fairness')} }")
     return {"card": card, "seconds": secs, "line": doc,
             "triad_launches": launches["triad"]}
 
@@ -3067,6 +3114,45 @@ ROLLOUT_WORKLOAD = "training-job"
 def driver_version() -> str:
     """The driver version the card runs, as nvidia-smi reports it."""
     return smi_query("driver_version")[0][0]
+
+
+def play_recreated_pods(client, node: str, driver_ds: str, api_url: str,
+                        base: dict, scripts: dict, valdir: str,
+                        card: str) -> dict:
+    """The kubelet's part of a rollout on ``node`` once it waits in
+    validation: the recreated driver pod (its init container, then its
+    main container with ``--no-park``) and the recreated validator pod's
+    init containers run on the card as processes, each exiting 0; then
+    the DaemonSets are marked ready."""
+    ds = client.get("apps/v1", "DaemonSet", driver_ds,
+                    RECONCILE_NAMESPACE)["spec"]["template"]["spec"]
+    stand_ins = {"GPU_VALIDATION_DIR": valdir, "HOST_ROOT": "/"}
+    driver = {}
+    for ctr, extra in ((ds["initContainers"][0], ()),
+                       (ds["containers"][0], ("--no-park",))):
+        env = {**base, **rendered_env(ctr, node, RECONCILE_NAMESPACE),
+               **stand_ins}
+        res = container_process(ctr, scripts, env, extra)
+        res["env"] = {k: v for k, v in env.items() if k not in base}
+        log(f"  the recreated driver pod's {ctr['name']} on {node}: "
+            f"{ctr['command'] + ctr['args'] + list(extra)} rc="
+            f"{res['rc']} in {res['seconds']:.3f}s, env {res['env']} "
+            f"({card})")
+        if res["rc"] != 0:
+            raise RuntimeError(f"{ctr['name']} failed: "
+                               f"{res['stderr_tail']}")
+        res.pop("stderr_tail")
+        driver[ctr["name"]] = res
+    pod = client.get("apps/v1", "DaemonSet", "gpu-operator-validator",
+                     RECONCILE_NAMESPACE)["spec"]["template"]["spec"]
+    c0 = time.perf_counter()
+    containers = play_init_containers(pod, base, stand_ins, api_url,
+                                      scripts, card, node=node)
+    out = {"driver": driver, "containers": containers,
+           "chain_s": time.perf_counter() - c0,
+           "marked_at": time.perf_counter()}
+    client.simulate_kubelet(ready=True)
+    return out
 
 
 def rollout_phase(torch, card: str, client, mgr, api, base: dict,
@@ -3175,38 +3261,9 @@ def rollout_phase(torch, card: str, client, mgr, api, base: dict,
                     "v1", "Pod") if p["spec"].get("nodeName") ==
                     RECONCILE_NODE}
                 kubelet_out["pods_at_validation"] = sorted(live)
-                ds = client.get("apps/v1", "DaemonSet", driver_ds,
-                                RECONCILE_NAMESPACE)["spec"]["template"]["spec"]
-                stand_ins = {"GPU_VALIDATION_DIR": valdir, "HOST_ROOT": "/"}
-                driver = {}
-                for ctr, extra in ((ds["initContainers"][0], ()),
-                                   (ds["containers"][0], ("--no-park",))):
-                    env = {**base, **rendered_env(ctr, RECONCILE_NODE,
-                                                  RECONCILE_NAMESPACE),
-                           **stand_ins}
-                    res = container_process(ctr, scripts, env, extra)
-                    res["env"] = {k: v for k, v in env.items()
-                                  if k not in base}
-                    log(f"  the recreated driver pod's {ctr['name']}: "
-                        f"{ctr['command'] + ctr['args'] + list(extra)} rc="
-                        f"{res['rc']} in {res['seconds']:.3f}s, env "
-                        f"{res['env']} ({card})")
-                    if res["rc"] != 0:
-                        raise RuntimeError(f"{ctr['name']} failed: "
-                                           f"{res['stderr_tail']}")
-                    res.pop("stderr_tail")
-                    driver[ctr["name"]] = res
-                kubelet_out["driver"] = driver
-                pod = client.get("apps/v1", "DaemonSet",
-                                 "gpu-operator-validator",
-                                 RECONCILE_NAMESPACE)["spec"]["template"][
-                                     "spec"]
-                c0 = time.perf_counter()
-                kubelet_out["containers"] = play_init_containers(
-                    pod, base, stand_ins, api.url, scripts, card)
-                kubelet_out["chain_s"] = time.perf_counter() - c0
-                kubelet_out["marked_at"] = time.perf_counter()
-                client.simulate_kubelet(ready=True)
+                kubelet_out.update(play_recreated_pods(
+                    client, RECONCILE_NODE, driver_ds, api.url, base,
+                    scripts, valdir, card))
             except BaseException as e:  # re-raised by the phase below
                 kubelet_out["error"] = e
 
@@ -3294,6 +3351,617 @@ def rollout_phase(torch, card: str, client, mgr, api, base: dict,
             "containers": kubelet_out["containers"],
             "pods_at_validation": kubelet_out["pods_at_validation"],
             "triad_launches": hbm["triad_launches"],
+            "phase_s": time.perf_counter() - t_start}
+
+
+# phase K: placement and the elastic handshake. A second node of the
+# card's pool (its pods played on the same card) joins; a SliceRequest for
+# the card's count is placed by watch events alone; the burn-in trainer
+# runs under the port's ElasticWorkload in a process on the card; a
+# driver rollout of the placed node's pool walks it into migrate-required,
+# where the trainer checkpoints and acks, the migrator rebinds the request
+# onto the other node, and a new trainer process restores the ack there
+MIGRATION_NODE = RECONCILE_NODE + "-b"   # sorts after the placed node
+TRAINER_REQUEST = "burnin-trainer"
+TRAINER_NAMESPACE = "default"
+# the shim's cadence: exactly TRAINER_STEPS_PER_TICK real train steps a
+# tick, a periodic save every TRAINER_CHECKPOINT_EVERY steps (its defaults)
+TRAINER_STEPS_PER_TICK = 3
+TRAINER_CHECKPOINT_EVERY = 6
+TRAINER_TICK_S = 0.1
+TRAINER_WARM_STEPS = 12     # steps before the rollout starts
+TRAINER_RESUMED_TICKS = 3   # training ticks after the resume, compared
+TRAINER_TIMEOUT_S = 300
+# the trainer's device; a rehearsal on a host without a card sets "cpu"
+TRAINER_DEVICE = "cuda"
+TRAINER_CHILD = """
+import sys
+import chip_smoke
+sys.exit(chip_smoke.trainer_process())
+"""
+
+
+class ClusterBridge:
+    """The phase's FakeClient as the trainer processes see it, served over
+    ``multiprocessing.managers`` on 127.0.0.1: each verb's result comes
+    back thawed, its NotFound and Conflict as tags the child raises
+    again."""
+
+    def __init__(self, client):
+        self.client = client
+
+    def call(self, verb: str, args: tuple, kwargs: dict):
+        from tpu_operator_torch.runtime.client import (ConflictError,
+                                                       NotFoundError)
+        from tpu_operator_torch.runtime.objects import thaw_obj
+
+        try:
+            return "ok", thaw_obj(getattr(self.client, verb)(*args,
+                                                              **kwargs))
+        except NotFoundError as e:
+            return "notfound", str(e)
+        except ConflictError as e:
+            return "conflict", str(e)
+
+
+class BridgedClient:
+    """The trainer process's client: the ElasticWorkload's verbs over the
+    parent's ClusterBridge."""
+
+    def __init__(self, bridge):
+        self.bridge = bridge
+
+    def _call(self, verb, *args, **kwargs):
+        from tpu_operator_torch.runtime.client import (ConflictError,
+                                                       NotFoundError)
+
+        tag, value = self.bridge.call(verb, args, kwargs)
+        if tag == "notfound":
+            raise NotFoundError(value)
+        if tag == "conflict":
+            raise ConflictError(value)
+        return value
+
+    def get(self, *args, **kwargs):
+        return self._call("get", *args, **kwargs)
+
+    def get_or_none(self, *args, **kwargs):
+        return self._call("get_or_none", *args, **kwargs)
+
+    def patch(self, *args, **kwargs):
+        return self._call("patch", *args, **kwargs)
+
+    def update_status(self, *args, **kwargs):
+        return self._call("update_status", *args, **kwargs)
+
+
+def serve_cluster(client) -> tuple:
+    """Serve ``client`` to child processes; returns (address, authkey
+    hex, stop)."""
+    from multiprocessing.managers import BaseManager
+
+    bridge = ClusterBridge(client)
+
+    class Served(BaseManager):
+        pass
+
+    Served.register("cluster", callable=lambda: bridge, exposed=("call",))
+    key = os.urandom(16)
+    server = Served(address=("127.0.0.1", 0), authkey=key).get_server()
+    threading.Thread(target=server.serve_forever, name="smoke-cluster",
+                     daemon=True).start()
+    return server.address, key.hex(), server.stop_event.set
+
+
+def trainer_process() -> int:
+    """Phase K's trainer as one process on the card: the burn-in at
+    ``BurninConfig``'s defaults under the port's ``ElasticWorkload`` for
+    the SliceRequest, over ``DCPCheckpointStore`` on ``TrainCheckpointer``.
+    After each tick the trainer runs the train steps the shim counted
+    (``steps_per_tick`` a training tick, none on a restore tick); the
+    store's ``state_fn`` catches it up to the shim's step first, so a save
+    holds the state of the step it is numbered.
+
+    ``SMOKE_TRAINER_ROLE=first``: tick until the shim has acked a migrate
+    intent, then hold still until the binding moves away, and exit. Once
+    the file ``SMOKE_TRAINER_HOLD`` names exists (the rollout is about to
+    start), its periodic checkpoints stop and it writes that path plus
+    ``.quiet``: a periodic save's status write racing the migrator's
+    intent would erase the intent's ``status.migration`` (ROADMAP.md
+    §C, C8), so from there on the shim writes the handshake's status
+    alone.
+    ``resume``: the first tick restores the acked step (Resumed); then
+    TRAINER_RESUMED_TICKS training ticks, whose losses are held to an
+    uninterrupted run from the same seed in this process, exactly. The
+    report goes to SMOKE_TRAINER_OUT as JSON."""
+    t = {"main": time.time()}
+    import torch
+    from multiprocessing.managers import BaseManager
+
+    from tpu_operator_torch.api import slicerequest as sr
+    from tpu_operator_torch.runtime.objects import get_nested
+    from tpu_operator_torch.workloads import burnin
+    from tpu_operator_torch.workloads.checkpoint import TrainCheckpointer
+    from tpu_operator_torch.workloads.elastic import (DCPCheckpointStore,
+                                                      ElasticWorkload)
+
+    role = os.environ["SMOKE_TRAINER_ROLE"]
+    device = os.environ["SMOKE_TRAINER_DEVICE"]
+    host, port = os.environ["SMOKE_CLUSTER"].rsplit(":", 1)
+
+    class Served(BaseManager):
+        pass
+
+    Served.register("cluster")
+    served = Served(address=(host, int(port)),
+                    authkey=bytes.fromhex(os.environ["SMOKE_AUTHKEY"]))
+    served.connect()
+    client = BridgedClient(served.cluster())
+    cfg = burnin.BurninConfig()
+    step_fn, init_state, _ = burnin.make_train_step(None, cfg,
+                                                    device=device)
+    box = {"state": init_state(0)}
+
+    def sync():
+        if device != "cpu":
+            torch.cuda.synchronize()
+
+    sync()
+    t["cuda_ready"] = time.time()
+    losses = {}
+    saves = []
+
+    def caught_up():
+        state = box["state"]
+        while state.step < shim.step:
+            state, loss = step_fn(state, burnin.make_batch(
+                cfg, None, state.step, device=device))
+            losses[state.step] = loss
+        box["state"] = state
+        return state
+
+    class TimedStore(DCPCheckpointStore):
+        def save(self, step, payload=None, partial=False, layout=None):
+            caught_up()
+            sync()
+            t0 = time.perf_counter()
+            super().save(step, payload, partial, layout)
+            saves.append((int(step), time.perf_counter() - t0))
+
+    store = TimedStore(TrainCheckpointer(os.environ["SMOKE_TRAINER_CKPT"]),
+                       state_fn=caught_up,
+                       state_like_fn=lambda: box["state"])
+    shim = ElasticWorkload(client, TRAINER_REQUEST, TRAINER_NAMESPACE,
+                           store=store,
+                           checkpoint_every=TRAINER_CHECKPOINT_EVERY,
+                           steps_per_tick=TRAINER_STEPS_PER_TICK)
+
+    def binding():
+        cr = client.get_or_none(sr.V1ALPHA1, sr.KIND_SLICE_REQUEST,
+                                TRAINER_REQUEST, TRAINER_NAMESPACE)
+        return list(get_nested(cr, "status", "nodes", default=[]) or [])
+
+    report = {"role": role, "t": t}
+    deadline = time.monotonic() + TRAINER_TIMEOUT_S
+    if role == "first":
+        bound = binding()
+        ticks = 0
+        hold = os.environ["SMOKE_TRAINER_HOLD"]
+        while binding() == bound:
+            if time.monotonic() > deadline:
+                raise RuntimeError("the binding never moved")
+            if "quiet_step" not in report and os.path.exists(hold):
+                shim.checkpoint_every = sys.maxsize
+                report["quiet_step"] = shim.step
+                with open(hold + ".quiet", "w") as f:
+                    f.write(str(shim.step))
+            if shim.max_acked < 0:
+                shim.tick()
+                caught_up()
+                ticks += 1
+                if shim.max_acked >= 0:
+                    t["acked"] = time.time()
+            time.sleep(TRAINER_TICK_S)
+        t["moved_away"] = time.time()
+        report.update(bound=bound, ticks=ticks, step=shim.step,
+                      acked=shim.max_acked)
+    else:
+        t0 = time.perf_counter()
+        shim.tick()
+        sync()
+        report["restore_s"] = time.perf_counter() - t0
+        t["resumed"] = time.time()
+        restored = shim.step
+        if box["state"].step != restored:
+            raise RuntimeError(f"the shim restored step {restored}, the "
+                               f"state {box['state'].step}")
+        for _ in range(TRAINER_RESUMED_TICKS):
+            shim.tick()
+            caught_up()
+            time.sleep(TRAINER_TICK_S)
+        # the uninterrupted run from the same seed, in this process
+        state, oracle = init_state(0), {}
+        for i in range(shim.step):
+            state, oracle[i + 1] = step_fn(state, burnin.make_batch(
+                cfg, None, i, device=device))
+        report.update(
+            restored=restored, step=shim.step, bound=binding(),
+            oracle={s: float(oracle[s]).hex() for s in sorted(losses)},
+            equal={s: bool(torch.equal(losses[s], oracle[s]))
+                   for s in sorted(losses)})
+    report["losses"] = {s: float(v).hex() for s, v in sorted(losses.items())}
+    report["saves"] = saves
+    with open(os.environ["SMOKE_TRAINER_OUT"], "w") as f:
+        json.dump(report, f)
+    return 0
+
+
+def start_trainer(role: str, address, authkey: str, ckdir: str,
+                  out: str, base: dict):
+    env = dict(base, SMOKE_TRAINER_ROLE=role,
+               SMOKE_TRAINER_DEVICE=TRAINER_DEVICE,
+               SMOKE_CLUSTER=f"{address[0]}:{address[1]}",
+               SMOKE_AUTHKEY=authkey, SMOKE_TRAINER_CKPT=ckdir,
+               SMOKE_TRAINER_OUT=out,
+               SMOKE_TRAINER_HOLD=os.path.join(ckdir, "hold"))
+    return subprocess.Popen([sys.executable, "-c", TRAINER_CHILD], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def finish_trainer(proc, out: str, what: str) -> dict:
+    try:
+        _, err = proc.communicate(timeout=TRAINER_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0 or not os.path.exists(out):
+        raise RuntimeError(f"the {what} trainer exited {proc.returncode}: "
+                           f"{err[-2000:]}")
+    with open(out) as f:
+        return json.load(f)
+
+
+def migration_phase(torch, card: str, client, mgr, api, base: dict,
+                    scripts: dict, valdir: str, rollout_s: float) -> dict:
+    """Phase K under phase H's restarted manager, after J: placement, the
+    burn-in trainer under the elastic shim, and a driver rollout that
+    moves it to the other node by the handshake, resumed bit-exact."""
+    from tpu_operator_torch.api import labels as L
+    from tpu_operator_torch.api.gpudriver import KIND_GPU_DRIVER, V1ALPHA1
+    from tpu_operator_torch.api import slicerequest as sr
+    from tpu_operator_torch.metrics.registry import render_prometheus
+    from tpu_operator_torch.runtime.objects import (annotations_of,
+                                                    get_nested, labels_of,
+                                                    thaw_obj)
+    from tpu_operator_torch.state.nodepool import get_node_pools
+
+    t_start = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    key = f"{TRAINER_NAMESPACE}/{TRAINER_REQUEST}"
+    lock = threading.Lock()
+    transitions, phases, evictions, pod_events = [], [], [], []
+
+    def on_node(event):
+        if event.obj["metadata"]["name"] != RECONCILE_NODE:
+            return
+        state = labels_of(event.obj).get(L.UPGRADE_STATE)
+        with lock:
+            if not transitions or transitions[-1][1] != state:
+                transitions.append((time.perf_counter(), state))
+
+    def on_pod(event):
+        pod = event.obj
+        if (pod.get("spec") or {}).get("nodeName") != RECONCILE_NODE:
+            return
+        with lock:
+            pod_events.append((time.perf_counter(), event.type,
+                               pod["metadata"]["name"]))
+
+    def on_request(event):
+        if event.obj["metadata"]["name"] != TRAINER_REQUEST:
+            return
+        status = event.obj.get("status") or {}
+        seen = (status.get("phase"),
+                (status.get("migration") or {}).get("phase"))
+        with lock:
+            if not phases or phases[-1][1] != seen:
+                phases.append((time.perf_counter(), seen))
+
+    def request():
+        return client.get(sr.V1ALPHA1, sr.KIND_SLICE_REQUEST,
+                          TRAINER_REQUEST, TRAINER_NAMESPACE)
+
+    def seen_at(want) -> float | None:
+        with lock:
+            return next((t for t, s in phases if want(s)), None)
+
+    upgrader = next(c.reconciler for c in mgr.controllers
+                    if c.name == "gpu-upgrade")
+    inner_evict = upgrader.client.evict
+
+    def evict(name, namespace=None):  # the FSM's drain, recorded
+        with lock:
+            evictions.append((time.perf_counter(), f"{namespace}/{name}"))
+        return inner_evict(name, namespace)
+
+    unwatch = [client.watch("v1", "Node", on_node),
+               client.watch("v1", "Pod", on_pod),
+               client.watch(sr.V1ALPHA1, sr.KIND_SLICE_REQUEST, on_request)]
+    upgrader.client.evict = evict
+    address, authkey, stop_bridge = serve_cluster(client)
+    work = tempfile.mkdtemp(prefix="gpu-migration-")
+    valdir_b = tempfile.mkdtemp(prefix="gpu-validations-b-")
+    kubelet_out, node_b_out = {}, {}
+    procs = []
+    node_a = client.get("v1", "Node", RECONCILE_NODE)
+    [pool] = get_node_pools([node_a])
+    driver_ds = f"gpu-driver-{pool.name}"
+    hist = "gpu_operator_placement_latency_seconds"
+    try:
+        # K1. the second node: the card's own product and topology, its
+        # driver rollouts paused (the rollout moves the placed node alone)
+        labels = {k: v for k, v in labels_of(node_a).items()
+                  if k in (L.GKE_ACCELERATOR, L.GKE_ACCELERATOR_COUNT)
+                  or k in L.FEATURE_LABELS}
+        alloc = {L.GPU_RESOURCE: str(n_cards)}
+        client.create({
+            "apiVersion": "v1", "kind": "Node",
+            "metadata": {"name": MIGRATION_NODE, "labels": labels,
+                         "annotations": {L.DRIVER_UPGRADE_ENABLED: "false"}},
+            "spec": {},
+            "status": {"allocatable": dict(alloc), "capacity": dict(alloc),
+                       "nodeInfo": node_a["status"]["nodeInfo"],
+                       "conditions": [{"type": "Ready", "status": "True"}]}})
+        api.add_node(MIGRATION_NODE, labels, alloc)
+
+        def node_b_kubelet():  # the new node's validator pod, on the card
+            try:
+                wait_for(lambda: labels_of(client.get(
+                    "v1", "Node", MIGRATION_NODE)).get(
+                        L.deploy_label("operator-validation")) == "true",
+                    "the second node's deploy labels", 60)
+                pod = daemonset(client, "gpu-operator-validator")[
+                    "spec"]["template"]["spec"]
+                c0 = time.perf_counter()
+                node_b_out["containers"] = play_init_containers(
+                    pod, base, {"GPU_VALIDATION_DIR": valdir_b,
+                                "HOST_ROOT": "/"},
+                    api.url, scripts, card, node=MIGRATION_NODE)
+                node_b_out["chain_s"] = time.perf_counter() - c0
+                client.simulate_kubelet(ready=True)
+            except BaseException as e:  # re-raised by the phase below
+                node_b_out["error"] = e
+
+        th_b = threading.Thread(target=node_b_kubelet,
+                                name="smoke-kubelet-b", daemon=True)
+        th_b.start()
+        client.simulate_kubelet(ready=True)
+        log(f"  K1: node {MIGRATION_NODE} joins pool {pool.name} "
+            f"({pool.selector}), {n_cards} card(s), rollouts paused "
+            f"({L.DRIVER_UPGRADE_ENABLED}=false); its validator pod plays "
+            f"on the card in a kubelet thread")
+
+        # K2. a SliceRequest for the card's count, placed by watch events
+        count0 = histogram_total(render_prometheus(), hist, "_count")
+        sum0 = histogram_total(render_prometheus(), hist, "_sum")
+        t_create = time.perf_counter()
+        client.create(sr.new_slice_request(
+            TRAINER_REQUEST, {"chips": n_cards},
+            namespace=TRAINER_NAMESPACE))
+        wait_for(lambda: seen_at(lambda s: s[0] == sr.PHASE_PLACED),
+                 "the SliceRequest to be placed", 60, 0.005)
+        placed_ms = (seen_at(lambda s: s[0] == sr.PHASE_PLACED)
+                     - t_create) * 1e3
+        cr = request()
+        bound = list(get_nested(cr, "status", "nodes"))
+        text = render_prometheus()
+        decision_s = histogram_total(text, hist, "_sum") - sum0
+        decisions = histogram_total(text, hist, "_count") - count0
+        lease = annotations_of(client.get("v1", "Node", RECONCILE_NODE)
+                               ).get(L.PLACED_BY)
+        log(f"  K2: {key} ({n_cards} card(s)) placed on {bound} "
+            f"{placed_ms:.2f} ms after its creation, by watch events alone; "
+            f"{decisions:.0f} scoring pass(es), {decision_s * 1e3:.3f} ms "
+            f"({hist}); score {cr['status']['score']}; lease {lease!r} "
+            f"({card})")
+        if bound != [RECONCILE_NODE] or lease != key:
+            raise RuntimeError(f"placement: bound {bound}, lease {lease!r}")
+
+        # K3. the trainer on the placed node, and its pod there
+        client.create({"apiVersion": "v1", "kind": "Pod", "metadata": {
+            "name": TRAINER_REQUEST, "namespace": TRAINER_NAMESPACE},
+            "spec": {"nodeName": RECONCILE_NODE, "containers": [{
+                "name": "train", "resources": {"requests": {
+                    L.GPU_RESOURCE: str(n_cards)}}}]},
+            "status": {"phase": "Running", "conditions": [
+                {"type": "Ready", "status": "True"}]}})
+        ckdir = os.path.join(work, "checkpoints")
+        out1, out2 = (os.path.join(work, f"trainer-{i}.json")
+                      for i in (1, 2))
+        t_first = time.perf_counter()
+        first = start_trainer("first", address, authkey, ckdir, out1, base)
+        procs.append(first)
+        wait_for(lambda: (get_nested(request(), "status", "progress",
+                                     "checkpointedStep", default=0) or 0)
+                 >= TRAINER_WARM_STEPS or first.poll() is not None,
+                 "the trainer's first checkpoints", TRAINER_TIMEOUT_S)
+        if first.poll() is not None:
+            finish_trainer(first, out1, "first")
+        log(f"  K3: the trainer (burn-in at BurninConfig's defaults under "
+            f"ElasticWorkload over DCPCheckpointStore) checkpointed step "
+            f"{get_nested(request(), 'status', 'progress', 'checkpointedStep')}"
+            f" {time.perf_counter() - t_first:.2f} s after its process "
+            f"started ({card})")
+
+        # K4. the rollout of the placed node's pool, once the second node
+        # is validated (the kubelet's marks are cluster-wide: the first
+        # node's validation must wait for its own recreated pod's)
+        th_b.join(timeout=ROLLOUT_TIMEOUT_S)
+        if "error" in node_b_out or th_b.is_alive():
+            raise node_b_out.get("error") or RuntimeError(
+                "the second node's validator chain did not finish")
+
+        def kubelet():
+            try:
+                wait_for(lambda: transitions and transitions[-1][1]
+                         == "validation-required",
+                         "the node to enter validation", ROLLOUT_TIMEOUT_S)
+                kubelet_out.update(play_recreated_pods(
+                    client, RECONCILE_NODE, driver_ds, api.url, base,
+                    scripts, valdir, card))
+            except BaseException as e:  # re-raised by the phase below
+                kubelet_out["error"] = e
+
+        # the trainer's periodic saves stop before the rollout (C8)
+        hold = os.path.join(ckdir, "hold")
+        open(hold, "w").close()
+        wait_for(lambda: os.path.exists(hold + ".quiet")
+                 or first.poll() is not None,
+                 "the trainer to stop its periodic saves", TRAINER_TIMEOUT_S)
+        th = threading.Thread(target=kubelet, name="smoke-kubelet-k",
+                              daemon=True)
+        th.start()
+        gd = thaw_obj(client.get(V1ALPHA1, KIND_GPU_DRIVER, "card-pool"))
+        version = gd["spec"].pop("driverVersion", None)
+        t_bump = time.perf_counter()
+        client.update(gd)
+        wait_for(lambda: seen_at(lambda s: s[1] == sr.MIG_REBOUND)
+                 or "error" in kubelet_out or first.poll() not in (None, 0),
+                 "the rebind", ROLLOUT_TIMEOUT_S, 0.005)
+        report1 = finish_trainer(first, out1, "first")
+        t_second = time.perf_counter()
+        second = start_trainer("resume", address, authkey, ckdir, out2, base)
+        procs.append(second)
+        report2 = finish_trainer(second, out2, "resumed")
+        wait_for(lambda: (transitions and transitions[-1][1] == "done")
+                 or "error" in kubelet_out,
+                 "the rollout to finish", ROLLOUT_TIMEOUT_S, 0.02)
+        t_done = time.perf_counter()
+        th.join(timeout=60)
+        if "error" in kubelet_out:
+            raise kubelet_out["error"]
+        if th.is_alive():
+            raise RuntimeError("the kubelet thread did not finish")
+        if not mgr.wait_idle(timeout=60, horizon=1.0):
+            raise RuntimeError("the manager did not go idle after K")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for u in unwatch:
+            u()
+        del upgrader.client.evict
+        stop_bridge()
+        shutil.rmtree(work, ignore_errors=True)
+        shutil.rmtree(valdir_b, ignore_errors=True)
+
+    # K5. what happened, in order
+    with lock:  # the node's walk since the version change
+        seq = [s for t, s in transitions if s is not None and t >= t_bump]
+        stage_at = {s: t for t, s in transitions
+                    if s is not None and t >= t_bump}
+        mig_seq = [s[1] for _, s in phases if s[1]]
+        mig_at = {s[1]: t for t, s in phases if s[1]}
+        evicted = list(evictions)
+        events = [e for e in pod_events if e[0] >= t_bump]
+    cr = request()
+    mig = cr["status"]["migration"]
+    acked, restored = mig.get("ackedStep"), mig.get("restoredStep")
+    intent_to_ack_s = mig_at[sr.MIG_CHECKPOINTED] - mig_at[sr.MIG_MIGRATING]
+    ack_to_rebind_ms = (mig_at[sr.MIG_REBOUND]
+                        - mig_at[sr.MIG_CHECKPOINTED]) * 1e3
+    rebind_to_resumed_s = mig_at[sr.MIG_RESUMED] - mig_at[sr.MIG_REBOUND]
+    # the ack's save is the last at the acked step
+    ack_save = [s for step, s in report1["saves"] if step == acked][-1:]
+    losses, oracle = report2["losses"], report2["oracle"]
+    log(f"  K: upgrade.state transitions of {RECONCILE_NODE}: {seq}")
+    log(f"  the request's migration phases: {mig_seq}; acked step {acked}, "
+        f"restored step {restored}; {report1['ticks']} ticks in the first "
+        f"process (periodic saves off from step {report1['quiet_step']}, "
+        f"acked at {report1['step']}), the resumed one at step "
+        f"{report2['step']}")
+    log(f"  intent -> ack {intent_to_ack_s:.3f} s (the ack's DCP save "
+        f"{ack_save[0] if ack_save else float('nan'):.3f} s); ack -> rebind "
+        f"{ack_to_rebind_ms:.1f} ms (the FSM's 5 s requeue); rebind -> "
+        f"resumed {rebind_to_resumed_s:.3f} s (the old process's exit, a "
+        f"new process to CUDA ready, and the DCP restore "
+        f"{report2['restore_s']:.3f} s); version change -> done "
+        f"{t_done - t_bump:.3f} s, against J's {rollout_s:.3f} s ({card})")
+    log(f"  losses after the resume (float.hex) {losses}; the uninterrupted "
+        f"run's {oracle}")
+    if seq != ROLLOUT_STAGES:
+        raise RuntimeError(f"the node walked {seq}, not {ROLLOUT_STAGES}")
+    if mig_seq != [sr.MIG_MIGRATING, sr.MIG_CHECKPOINTED, sr.MIG_REBOUND,
+                   sr.MIG_RESUMED]:
+        raise RuntimeError(f"the migration phases: {mig_seq}")
+    if not (stage_at["migrate-required"] <= mig_at[sr.MIG_MIGRATING]
+            and mig_at[sr.MIG_REBOUND] <= stage_at["drain-required"]):
+        raise RuntimeError("the handshake did not run inside the migrate "
+                           "stage")
+    if acked is None or restored != acked or report2["restored"] != acked \
+            or report1["acked"] != acked:
+        raise RuntimeError(f"acked {acked}, restored {restored} (status), "
+                           f"{report2['restored']} (trainer)")
+    if cr["status"]["nodes"] != [MIGRATION_NODE] or \
+            report2["bound"] != [MIGRATION_NODE]:
+        raise RuntimeError(f"the request is bound to {cr['status']['nodes']}")
+    leases = {n: annotations_of(client.get("v1", "Node", n)).get(
+        L.PLACED_BY) for n in (RECONCILE_NODE, MIGRATION_NODE)}
+    if leases != {RECONCILE_NODE: None, MIGRATION_NODE: key}:
+        raise RuntimeError(f"the leases after the move: {leases}")
+    if len(losses) != TRAINER_RESUMED_TICKS * TRAINER_STEPS_PER_TICK or \
+            min(int(s) for s in losses) != acked + 1 or \
+            losses != oracle or not all(report2["equal"].values()):
+        raise RuntimeError(f"the resumed losses differ from the "
+                           f"uninterrupted run's: {report2['equal']}")
+    if [e for _, e in evicted] != [key] or \
+            evicted[0][0] < mig_at[sr.MIG_REBOUND]:
+        raise RuntimeError(f"the trainer's pod did not leave by eviction "
+                           f"after the rebind: {evicted}")
+    node = client.get("v1", "Node", RECONCILE_NODE)
+    if (node.get("spec") or {}).get("unschedulable"):
+        raise RuntimeError("the node ended cordoned")
+    deleted = {n: t for t, ty, n in events if ty == "DELETED"}
+    added = {n: t for t, ty, n in events if ty == "ADDED"}
+    validator = f"gpu-operator-validator-{RECONCILE_NODE}"
+    if not (deleted.get(validator, float("inf"))
+            <= stage_at["validation-required"] <= kubelet_out["marked_at"]
+            <= added.get(validator, float("-inf"))
+            <= stage_at["uncordon-required"]):
+        raise RuntimeError(f"validation did not wait for the recreated "
+                           f"validator pod: deleted {deleted}, added {added}")
+    hbm = kubelet_out["containers"]["hbm-validation"]
+    hbm_b = node_b_out["containers"]["hbm-validation"]
+    if hbm["triad_launches"] == 0 or hbm_b["triad_launches"] == 0:
+        raise RuntimeError("a validator's hbm-validation did not launch "
+                           "the triad")
+    log(f"  {MIGRATION_NODE}'s validator chain {node_b_out['chain_s']:.3f} s "
+        f"(the triad {hbm_b['triad_launches']} times in its child); the "
+        f"recreated validator on {RECONCILE_NODE} {kubelet_out['chain_s']:.3f}"
+        f" s (the triad {hbm['triad_launches']} times); the driver "
+        f"{version!r} unpinned; the node ends uncordoned in done ({card})")
+    return {"card": card, "placement_ms": placed_ms,
+            "placement_decision_ms": decision_s * 1e3,
+            "placement_decisions": decisions,
+            "intent_to_ack_s": intent_to_ack_s,
+            "ack_save_s": ack_save[0] if ack_save else None,
+            "ack_to_rebind_ms": ack_to_rebind_ms,
+            "rebind_to_resumed_s": rebind_to_resumed_s,
+            "restore_s": report2["restore_s"],
+            "rollout_s": t_done - t_bump, "rollout_j_s": rollout_s,
+            "stages": seq, "migration_phases": mig_seq,
+            "acked_step": acked, "restored_step": restored,
+            "resumed_losses": losses, "evictions": [e for _, e in evicted],
+            "trainer_first": {k: report1[k] for k in ("ticks", "step", "t",
+                                                      "quiet_step")},
+            "trainer_resumed": {k: report2[k] for k in ("step", "t")},
+            "chain_wall_s": kubelet_out["chain_s"],
+            "node_b_chain_wall_s": node_b_out["chain_s"],
+            "triad_launches": hbm["triad_launches"],
+            "triad_launches_node_b": hbm_b["triad_launches"],
             "phase_s": time.perf_counter() - t_start}
 
 
@@ -3625,8 +4293,32 @@ def main() -> int:
                                "process")
         return figures
 
-    runtime = runtime_phase(torch, card, rollout=phase_j)
-    rollout = runtime.pop("rollout")
+    def phase_k(rollout_s: float, **live):
+        hbm_probe.triad_.launches = 0
+        fa.flash_attention_blocks.launches = 0
+        log("# phase K: placement and the elastic handshake under the "
+            "manager (a second node, a SliceRequest placed by watch events, "
+            "the burn-in trainer under ElasticWorkload on the card, a "
+            "driver rollout moving it by checkpoint, rebind and restore)")
+        figures = migration_phase(torch, card, rollout_s=rollout_s, **live)
+        figures["launches_in_process"] = {
+            "triad": hbm_probe.triad_.launches,
+            "flash_attention": fa.flash_attention_blocks.launches}
+        log(f"  kernel launches in phase K: triad "
+            f"{figures['triad_launches']} in the recreated hbm-validation "
+            f"child, {figures['triad_launches_node_b']} in the second "
+            f"node's; in this process {figures['launches_in_process']}")
+        if any(figures["launches_in_process"].values()):
+            raise RuntimeError("phase K launched a kernel in this process")
+        return figures
+
+    def phases_jk(**live):
+        j = phase_j(**live)
+        return {"j": j, "k": phase_k(j["rollout_s"], **live)}
+
+    runtime = runtime_phase(torch, card, rollout=phases_jk)
+    jk = runtime.pop("rollout")
+    rollout, migration = jk["j"], jk["k"]
     runtime["operator_process"] = h0
     runtime["launches_in_process"] = launches_h
     log(f"  kernel launches in phase H: triad {runtime['triad_launches']} "
@@ -3636,6 +4328,7 @@ def main() -> int:
         raise RuntimeError("the runtime launched a kernel in this process")
     log(json.dumps({"runtime": runtime}))
     log(json.dumps({"rollout": rollout}))
+    log(json.dumps({"migration": migration}))
 
     # 14. the kernel table
     kernels = [{
@@ -3648,6 +4341,8 @@ def main() -> int:
         "launches_phase_h_child": runtime["triad_launches"],
         "launches_phase_i_bench": headline["triad_launches"],
         "launches_phase_j_child": rollout["triad_launches"],
+        "launches_phase_k_child": migration["triad_launches"],
+        "launches_phase_k_node_b_child": migration["triad_launches_node_b"],
         "max_abs_err": triad_err,
         "tolerance": TRIAD_TOLERANCE,
         "ms": kernel_ms,

@@ -19,7 +19,11 @@ from tpu_operator_torch.workloads import backend, hardware
     ("nvidia-h100-80gb", "h100-sxm"),
     ("nvidia-h100-mega-80gb", "h100-sxm"),
     ("NVIDIA-H100-PCIe", "h100-pcie"),
-    ("NVIDIA A100-SXM4-80GB", None),
+    ("NVIDIA A100-SXM4-80GB", "a100-sxm"),
+    ("NVIDIA-A100-SXM4-80GB", "a100-sxm"),
+    ("NVIDIA A100 80GB PCIe", None),
+    ("NVIDIA GB200", "gb200"),
+    ("NVIDIA-GB200", "gb200"),
     ("cpu", None),
     ("", None),
 ])

@@ -1,11 +1,14 @@
 """The port's headline bench (``python -m tpu_operator_torch.bench``)
 against the repository's root ``bench.py``: its control-plane rider has
 the reference rider's keys, less the parts whose benchmarks wait for
-modules not ported, under ``torch_naming.py``'s ``BENCH_KEYS``, and the
-same deterministic values at small ``n`` (each side's benchmarks shrunk
-alike: no apiserver latency, a 60-node fleet over a 50-node baseline, a
-2000-item lineage round). Without CUDA the port's bench prints one
-``validator_bench_unavailable`` line and exits 1: it has no CPU
+modules not ported (fleet telemetry, federation), under
+``torch_naming.py``'s ``BENCH_KEYS``, and the same deterministic values at
+small ``n`` (each side's benchmarks shrunk alike: no apiserver latency, a
+60-node fleet over a 50-node baseline, a 2000-item lineage round, a
+200-request placement stream, 3 migrating requests); the placement and
+migration parts' figures are held to the reference in
+``test_torch_placement_bench.py``. Without CUDA the port's bench prints
+one ``validator_bench_unavailable`` line and exits 1: it has no CPU
 fallback. Its env knobs are the reference's by ``BENCH_ENV``."""
 
 import functools
@@ -25,18 +28,9 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 N_NODES = 20
 FLEET_NODES = 60
 # the reference rider's parts whose benchmarks need modules not ported
-# (placement, migration and resharding, fleet telemetry, restart,
-# fairness, federation; ROADMAP.md §A items 3-6)
-NOT_PORTED = {"placement", "placement_p99_ms", "fleet_utilization",
-              "fleet_utilization_first_fit", "migration",
-              "slice_migration_p95_s", "reshard", "resize_p95_s",
-              "reshard_bytes_ratio", "placement_fleet",
-              "placement_fleet_p99_ms", "placement_storm_rps", "telemetry",
-              "telemetry_overhead_ratio", "restart",
-              "restart_to_first_decision_warm_s", "warm_over_cold",
-              "fairness", "fairness_jain_index", "saturation_drain_rps",
-              "federation", "federation_route_p99_ms",
-              "federation_quality_vs_flat"}
+# (fleet telemetry, federation; ROADMAP.md §A items 4 and 6)
+NOT_PORTED = {"telemetry", "telemetry_overhead_ratio", "federation",
+              "federation_route_p99_ms", "federation_quality_vs_flat"}
 
 
 def shrink(monkeypatch, mod, baseline_kw):
@@ -47,24 +41,25 @@ def shrink(monkeypatch, mod, baseline_kw):
         mod.run_lineage_bench, items=2000, rounds=1))
     monkeypatch.setattr(mod, "run_fleet_bench", functools.partial(
         mod.run_fleet_bench, churn_items=2000, **{baseline_kw: 50}))
-
-
-def not_ported(*args, **kwargs):
-    raise RuntimeError("not ported")
+    monkeypatch.setattr(mod, "run_placement_bench", functools.partial(
+        mod.run_placement_bench, n_requests=200, lifetime=50))
+    monkeypatch.setattr(mod, "run_migration_bench", functools.partial(
+        mod.run_migration_bench, n_requests=3))
 
 
 def riders(monkeypatch):
     shrink(monkeypatch, rcp, "baseline_tpu")
     shrink(monkeypatch, cp, "baseline_gpu")
-    for name in ("run_placement_bench", "run_migration_bench"):
-        monkeypatch.setattr(rcp, name, not_ported)
     for key, value in (("SCALE_NODES", str(N_NODES)),
                        ("FLEET_NODES", str(FLEET_NODES))):
         monkeypatch.setenv("TPUOP_BENCH_" + key, value)
         monkeypatch.setenv(N.BENCH_ENV["TPUOP_BENCH_" + key], value)
     for part in ("PLACEMENT_FLEET", "TELEMETRY", "RESTART", "FAIRNESS",
                  "FEDERATION", "RESHARD"):
-        monkeypatch.setenv("TPUOP_BENCH_SKIP_" + part, "1")
+        knob = "TPUOP_BENCH_SKIP_" + part
+        monkeypatch.setenv(knob, "1")
+        if knob in N.BENCH_ENV:
+            monkeypatch.setenv(N.BENCH_ENV[knob], "1")
     return rbench._controlplane_doc(), bench._controlplane_doc()
 
 

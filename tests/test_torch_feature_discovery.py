@@ -72,8 +72,8 @@ def fake_chips(monkeypatch):
      {L.GPU_PRODUCT: "NVIDIA-H100-PCIe", L.GPU_MEMORY_GB: "80",
       L.GPU_NVLINK_GBPS: "64"}),
     (({RL.GKE_TPU_ACCELERATOR: "tpu-v9-unknown"}, {"count": 4}),
-     ({}, inventory("NVIDIA A100-SXM4-80GB")),
-     {L.GPU_PRODUCT: "NVIDIA-A100-SXM4-80GB"}),
+     ({}, inventory("NVIDIA L4")),
+     {L.GPU_PRODUCT: "NVIDIA-L4"}),
 ], ids=["gke-label", "multi-host", "nvml-name-and-driver", "pcie",
         "unknown-product"])
 def test_compute_feature_labels(ref_case, port_case, want):

@@ -112,6 +112,18 @@ def test_port_imports_without_jax_or_the_jax_package():
         "tpu_operator_torch.cli.node_agents",
         "tpu_operator_torch.state.nodepool",
         "tpu_operator_torch.topology.manager",
+        # placement with quota, and the elastic handshake
+        "tpu_operator_torch.api.slicerequest",
+        "tpu_operator_torch.topology.placement",
+        "tpu_operator_torch.topology.index",
+        "tpu_operator_torch.scheduling",
+        "tpu_operator_torch.scheduling.quota",
+        "tpu_operator_torch.controllers.placement_controller",
+        "tpu_operator_torch.controllers.slices",
+        "tpu_operator_torch.runtime.snapshot",
+        "tpu_operator_torch.runtime.manager",
+        "tpu_operator_torch.cli.operator",
+        "tpu_operator_torch.benchmarks.controlplane",
     }
     assert expected <= set(res["modules"])
     assert res["leaked"] == []

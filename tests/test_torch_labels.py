@@ -100,7 +100,17 @@ CONSTANTS = [
     ("UPGRADE_FAILED_REASON", "UPGRADE_FAILED_REASON"),
     ("PSA_LABEL_PREFIX", "PSA_LABEL_PREFIX"),
     ("PSA_LEVEL_PRIVILEGED", "PSA_LEVEL_PRIVILEGED"),
+    # placement, quota and the elastic handshake's
+    ("PLACED_BY", "PLACED_BY"),
+    ("SLICE_INTENT", "SLICE_INTENT"),
+    ("SLICE_INTENT_DEADLINE", "SLICE_INTENT_DEADLINE"),
+    ("SLICE_INTENT_ACK", "SLICE_INTENT_ACK"),
+    ("SLICE_ELASTIC", "SLICE_ELASTIC"),
+    ("QUOTA_CLASS", "QUOTA_CLASS"),
 ]
+# constants outside the label domain, renamed row by row
+# (torch_naming.PLACEMENT)
+NAMED = [("TELEMETRY_CONDITION", "TELEMETRY_CONDITION")]
 
 
 @pytest.mark.parametrize("ref_name, port_name", CONSTANTS,
@@ -109,13 +119,23 @@ def test_constant_follows_the_rule(ref_name, port_name):
     assert getattr(L, port_name) == rename(getattr(RL, ref_name))
 
 
+@pytest.mark.parametrize("ref_name, port_name", NAMED,
+                         ids=[p for _, p in NAMED])
+def test_named_constant_follows_the_rule(ref_name, port_name):
+    import torch_naming as N
+
+    assert getattr(L, port_name) == N.name(getattr(RL, ref_name))
+    assert getattr(L, port_name) != getattr(RL, ref_name)
+
+
 def test_the_port_has_no_other_label():
     """Every upper-case string constant of the port's labels module is in
-    the table above, or is GKE's accelerator label (a discovery input;
+    the tables above, or is GKE's accelerator label (a discovery input;
     GKE's nodepool label is the reference's, unchanged)."""
     names = {n for n, v in vars(L).items()
              if n.isupper() and isinstance(v, str)}
-    assert names == {p for _, p in CONSTANTS} | {"GKE_ACCELERATOR"}
+    assert names == ({p for _, p in CONSTANTS} | {p for _, p in NAMED}
+                     | {"GKE_ACCELERATOR"})
     assert L.GKE_ACCELERATOR == "cloud.google.com/gke-accelerator"
 
 
@@ -181,7 +201,8 @@ def test_reconcile_path_tuples():
 # reference maps GKE's TPU accelerator to a TPU generation the same way
 GENERATIONS = {"nvidia-h100-80gb": "h100-sxm",
                "nvidia-h100-mega-80gb": "h100-sxm",
-               "nvidia-a100-80gb": "", "tpu-v5p-slice": "", "": ""}
+               "nvidia-a100-80gb": "a100-sxm", "nvidia-gb200": "gb200",
+               "nvidia-tesla-a100": "", "tpu-v5p-slice": "", "": ""}
 
 
 @pytest.mark.parametrize("value", sorted(GENERATIONS))

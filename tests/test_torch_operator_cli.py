@@ -85,10 +85,9 @@ def test_wire_manager_stacks_trace_over_cache():
     assert isinstance(mgr.client, TracingClient)
     assert isinstance(mgr.client.inner, CachedClient)
     assert mgr.client.inner.inner is fake and mgr.find_cache() is not None
-    # the reference's CLI order (cli/operator.py:167-179), placement not
-    # ported yet
+    # the reference's CLI order (cli/operator.py:167-179)
     assert [c.name for c in mgr.controllers] == [
-        "gpuclusterpolicy", "gpudriver", "gpu-upgrade"]
+        "gpuclusterpolicy", "gpudriver", "gpu-upgrade", "sliceplacement"]
     assert all(c.workers == 3 for c in mgr.controllers)
     assert not DAG_GATE.enabled and not SPEC_HASH_GATE.enabled
     plain = op.wire_manager(fake, op.build_parser().parse_args(

@@ -7,10 +7,8 @@ restarts). Each scenario runs on both packages' own ``FakeClient`` over
 clusters mapped one to one; the transcripts (what it observed, every
 upgrade-state label the reconciler wrote node by node, its evictions,
 the Events, the gauges and counters) agree under ``torch_naming.py``'s
-map. One difference is the port's own: a Placed SliceRequest on a
-draining unit raises (``test_placed_slice_request_on_a_draining_unit_
-raises``), where the reference migrates it through placement, not
-ported."""
+map. The migrate stage's elastic handshake has its own scenarios
+(``torch_upgrade_scenarios.MIGRATE``, ``test_torch_migration.py``)."""
 
 import pytest
 
@@ -49,31 +47,6 @@ def test_scenarios_say_what_they_are_named_for():
     failed = S.run("validation_timeout_emits_failure_warning", ref=False)
     assert [e[2] for e in failed["events"]
             if e[1] == "DriverUpgradeFailed"] == ["Warning"]
-
-
-def test_placed_slice_request_on_a_draining_unit_raises():
-    """The port's migrate stage: a Placed SliceRequest bound to the unit
-    needs the elastic handshake, not ported, so the pass raises and the
-    unit stays in the migrate stage, its workload not drained; with the
-    request gone the same unit drains."""
-    s = S.Side(ref=False)
-    S.converged(s, n_nodes=1)
-    s.workload_pod("train-job", "node-0")
-    s.c.create({"apiVersion": slices.V1ALPHA1,
-                "kind": slices.KIND_SLICE_REQUEST,
-                "metadata": {"name": "job", "namespace": "default"},
-                "status": {"phase": slices.PHASE_PLACED,
-                           "nodes": ["node-0"]}})
-    rec = s.upgrader()
-    s.change_driver_spec()
-    with pytest.raises(slices.MigrationNotPortedError, match="item 3"):
-        s.reconcile(rec)
-    assert s.state("node-0") == "migrate-required"
-    assert s.pod_exists("train-job") and s.spy.evictions == []
-    s.c.delete(slices.V1ALPHA1, slices.KIND_SLICE_REQUEST, "job", "default")
-    s.reconcile(rec)
-    assert s.state("node-0") == "validation-required"
-    assert not s.pod_exists("train-job")
 
 
 def test_migrator_lists_slice_requests_as_the_reference():

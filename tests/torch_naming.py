@@ -228,16 +228,50 @@ UPGRADE_TEXT = (("New libtpu revision validated",
                  "New driver revision validated"),
                 ("remaining TPU pods", "remaining GPU pods"))
 
+# --- placement, quota and the elastic handshake -----------------------------
+# the placement labels keep their suffixes (label_key's rule: the domain
+# alone changes); the names outside the label domain, row by row
+PLACEMENT = {
+    "TPUTelemetryHealthy": "GPUTelemetryHealthy",  # the Node condition
+    "TPUQuota": "GPUQuota",                        # the quota CRD's kind
+    "tpu-operator-quota": "gpu-operator-quota",    # the quota ConfigMap
+    "sliceplacement": "sliceplacement",            # the controller
+}
+# an NVLink domain is what the reference calls an ICI domain, and a GPU
+# request names a fabric where a TPU request names a grid
+PLACEMENT_TEXT = (("ICI domain", "NVLink domain"),
+                  ("requested grid", "requested topology"))
+# the operator's metric series (placement, fleet cards, migrations and the
+# rest): the prefix alone changes
+METRIC_PREFIX = ("tpu_operator_", "gpu_operator_")
+
+
+def metric(series: str) -> str:
+    """A reference metric series under the rule."""
+    a, b = METRIC_PREFIX
+    return b + series[len(a):] if series.startswith(a) else series
+
+
 # --- the benchmarks -----------------------------------------------------------
 # the headline's env knobs that the port has (the rest name benchmarks
 # of modules not ported, or the reference's child process)
 BENCH_ENV = {"TPUOP_BENCH_SKIP_SCALE": "GPUOP_BENCH_SKIP_SCALE",
              "TPUOP_BENCH_SCALE_NODES": "GPUOP_BENCH_SCALE_NODES",
              "TPUOP_BENCH_FLEET_NODES": "GPUOP_BENCH_FLEET_NODES",
-             "TPUOP_BENCH_SKIP_FLEET": "GPUOP_BENCH_SKIP_FLEET"}
+             "TPUOP_BENCH_SKIP_FLEET": "GPUOP_BENCH_SKIP_FLEET",
+             "TPUOP_BENCH_SKIP_RESHARD": "GPUOP_BENCH_SKIP_RESHARD",
+             "TPUOP_BENCH_PLACEMENT_FLEET_NODES":
+                 "GPUOP_BENCH_PLACEMENT_FLEET_NODES",
+             "TPUOP_BENCH_SKIP_PLACEMENT_FLEET":
+                 "GPUOP_BENCH_SKIP_PLACEMENT_FLEET",
+             "TPUOP_BENCH_RESTART_NODES": "GPUOP_BENCH_RESTART_NODES",
+             "TPUOP_BENCH_SKIP_RESTART": "GPUOP_BENCH_SKIP_RESTART",
+             "TPUOP_BENCH_FAIRNESS_NODES": "GPUOP_BENCH_FAIRNESS_NODES",
+             "TPUOP_BENCH_SKIP_FAIRNESS": "GPUOP_BENCH_SKIP_FAIRNESS"}
 # result keys and metric names
 BENCH_KEYS = {"n_tpu_nodes": "n_gpu_nodes", "n_tpu": "n_gpu",
-              "baseline_tpu": "baseline_gpu"}
+              "baseline_tpu": "baseline_gpu",
+              "baseline_tpu_nodes": "baseline_gpu_nodes"}
 BENCH_METRICS = {
     "validator_matmul_mxu_utilization":
         "validator_matmul_tensor_core_utilization",
@@ -262,7 +296,7 @@ POOL_MIX = {
 
 EXACT = {**CRD, **STATES, **OBJECTS, **CONTAINERS, **PATHS, **COMMANDS,
          **ARGS, **ENV, **RESOURCES, **PROFILES, **CARDS, **ALERTS,
-         **RUNTIME, **UPGRADE}
+         **RUNTIME, **UPGRADE, **PLACEMENT}
 
 
 def label_key(value: str) -> str:

@@ -932,12 +932,130 @@ DRAIN = {f.__name__[2:]: f for f in (
     s_validation_deadline_survives_restart)}
 
 
-def run(scenario, ref):
-    s = Side(ref)
-    observed = SCENARIOS[scenario](s)
-    return {"observed": observed, **s.record()}
+# --- the migrate stage's elastic handshake ------------------------------------
+# (the reference's tests/test_elastic.py and test_upgrade.py arcs through
+# the FSM): a Placed SliceRequest, bound by its lease annotations, whose
+# workload is the elastic shim on a stepped clock
 
-SCENARIOS = {**FSM, **DRAIN}
+def placed_request(s, nodes, chips=4, elastic=True):
+    from tpu_operator.api import slicerequest as rsr
+    from tpu_operator_torch.api import slicerequest as sr
+
+    mod = rsr if s.ref else sr
+    cr = mod.new_slice_request("job", {"chips": chips}, namespace="default")
+    if not elastic:
+        cr["metadata"]["annotations"] = {s.L.SLICE_ELASTIC: "false"}
+    cr["status"] = {"phase": mod.PHASE_PLACED, "nodes": list(nodes),
+                    "chips": chips}
+    s.c.create(cr)
+    for n in nodes:
+        s.c.patch("v1", "Node", n, {"metadata": {"annotations": {
+            s.L.PLACED_BY: "default/job"}}})
+    s.workload_pod("train-job", nodes[0])
+    return mod
+
+
+def request_state(s, mod):
+    cr = s.c.get(mod.V1ALPHA1, mod.KIND_SLICE_REQUEST, "job", "default")
+    status = thaw_obj(cr.get("status") or {})
+    anns = {k.rpartition("/")[2]: v for k, v in
+            (cr["metadata"].get("annotations") or {}).items()}
+    leases = sorted(n["metadata"]["name"] for n in s.c.list("v1", "Node")
+                    if (n["metadata"].get("annotations") or {}).get(
+                        s.L.PLACED_BY) == "default/job")
+    return {"phase": status.get("phase"), "nodes": status.get("nodes"),
+            "migration": status.get("migration"), "annotations": anns,
+            "leases": leases, "migrations": status.get("migrations")}
+
+
+def shim(s, clock):
+    from tpu_operator.workloads.elastic import ElasticWorkload as RShim
+    from tpu_operator_torch.workloads.elastic import ElasticWorkload
+
+    return (RShim if s.ref else ElasticWorkload)(
+        s.c, "job", "default", clock=lambda: clock[0])
+
+
+def migrate_fleet(s, max_parallel=1, timeout=120):
+    s.node("node-0", SINGLE)
+    s.node("node-1", SINGLE)
+    s.converge({"autoUpgrade": True, "maxParallelUpgrades": max_parallel,
+                "migrationTimeoutSeconds": timeout})
+
+
+def s_placed_request_migrates_before_the_drain(s):
+    clock = [1000.0]
+    migrate_fleet(s)
+    mod = placed_request(s, ["node-0"])
+    wl = shim(s, clock)
+    wl.tick()
+    rec = s.upgrader(clock)
+    s.change_driver_spec()
+    out = []
+    for _ in range(3):
+        s.reconcile(rec)
+        out.append([s.states(), request_state(s, mod),
+                    s.pod_exists("train-job")])
+        clock[0] += 5.0
+        wl.tick()
+    out.append([request_state(s, mod), wl.step, wl.max_acked])
+    return out
+
+
+def s_expired_deadline_degrades_to_the_hard_drain(s):
+    clock = [1000.0]
+    migrate_fleet(s, timeout=60)
+    mod = placed_request(s, ["node-0"])
+    rec = s.upgrader(clock)
+    s.change_driver_spec()
+    s.reconcile(rec)
+    out = [s.states(), request_state(s, mod)]
+    clock[0] += 61.0
+    s.reconcile(rec)
+    return out + [s.states(), request_state(s, mod),
+                  s.pod_exists("train-job")]
+
+
+def s_non_elastic_request_skips_the_handshake(s):
+    clock = [1000.0]
+    migrate_fleet(s)
+    mod = placed_request(s, ["node-0"], elastic=False)
+    rec = s.upgrader(clock)
+    s.change_driver_spec()
+    s.reconcile(rec)
+    return [s.states(), request_state(s, mod), s.pod_exists("train-job")]
+
+
+def s_request_spanning_two_units_moves_once(s):
+    clock = [1000.0]
+    s.node("node-0", SINGLE)
+    s.node("node-1", SINGLE)
+    s.node("slice-h0", SLICE)
+    s.node("slice-h1", SLICE)
+    s.converge({"autoUpgrade": True, "maxParallelUpgrades": 2,
+                "migrationTimeoutSeconds": 120})
+    mod = placed_request(s, ["node-0", "node-1"], chips=8)
+    wl = shim(s, clock)
+    wl.tick()
+    rec = s.upgrader(clock)
+    s.change_driver_spec()
+    out = []
+    for _ in range(3):
+        s.reconcile(rec)
+        out.append([s.states(), request_state(s, mod)])
+        clock[0] += 5.0
+        wl.tick()
+    return out + [request_state(s, mod)]
+
+
+# the migrate stage's handshake through the FSM (its own test file)
+MIGRATE = {f.__name__[2:]: f for f in (
+    s_placed_request_migrates_before_the_drain,
+    s_expired_deadline_degrades_to_the_hard_drain,
+    s_non_elastic_request_skips_the_handshake,
+    s_request_spanning_two_units_moves_once)}
+
+SCENARIOS = {**FSM, **DRAIN, **MIGRATE}
 
 
 def run(scenario, ref):

@@ -15,8 +15,7 @@ reference's names onto the port's (ROADMAP.md §C holds the table):
 - paths ``/run/tpu/*`` -> ``/run/nvidia/*``.
 
 Only what the ported modules read is here. The GKE TPU node labels and
-the placement, quota and federation constants wait for the modules that
-read them.
+the federation constants wait for the modules that read them.
 """
 
 # --- GKE's node labels (discovery inputs) ----------------------------------
@@ -68,6 +67,42 @@ DRIVER_UPGRADE_ENABLED = f"{DOMAIN}/driver-upgrade-enabled"
 # "grades": {chip_id: ok|warn|fail}, "duty_pct", "hbm_free_frac",
 # "temp_max_c", "gen", "seq"}
 HEALTH_DIGEST = f"{DOMAIN}/health-digest"
+# placement lease: stamped on every node a SliceRequest is bound to, value
+# "<namespace>/<name>" of the owning request. The placement engine treats
+# it as the source of truth for what is free: a node carrying any
+# placed-by value is never offered to another request, and a Placed
+# request whose lease disappears is re-queued through an explicit drain
+# event.
+PLACED_BY = f"{DOMAIN}/placed-by"
+
+# --- elastic-slice protocol (slice-intent contract) ------------------------
+# Posted on a SliceRequest by the operator (upgrade FSM migrate stage, or
+# the placement controller on a spec resize) to ask the workload to
+# checkpoint-and-reshard. Value is the intent kind: migrate | shrink | grow.
+SLICE_INTENT = f"{DOMAIN}/slice-intent"
+# epoch-seconds deadline for the intent above; past it the operator falls
+# back to a hard drain (migrate) or abandons the resize attempt (shrink/
+# grow), recording outcome="timeout".
+SLICE_INTENT_DEADLINE = f"{DOMAIN}/slice-intent-deadline"
+# workload acknowledgement: the checkpoint step durably saved for this
+# intent. Written by the workload shim (workloads/elastic.py); the
+# operator only rebinds capacity after seeing the ack, which is what
+# makes the no-acked-work-lost invariant hold across any interleaving.
+SLICE_INTENT_ACK = f"{DOMAIN}/slice-intent-ack"
+# stamp "false" on a SliceRequest to declare its workload does not speak
+# the intent protocol; the operator skips straight to the hard-drain path
+# without burning the migration timeout waiting for an ack.
+SLICE_ELASTIC = f"{DOMAIN}/elastic"
+# fair-share admission class of a SliceRequest (scheduling/quota.py): the
+# quota-tree leaf this request draws share from. Absent, the request maps
+# to a leaf named after its namespace, then to the synthesized `default`
+# leaf: classification never rejects a request.
+QUOTA_CLASS = f"{DOMAIN}/quota-class"
+# Node condition type raised by the telemetry scorer once a node's digest
+# FAILs for a sustained run of publishes: status "False" means condemned,
+# the placement engine stops offering the node and Placed bindings on it
+# drain. Absent, the node is healthy.
+TELEMETRY_CONDITION = "GPUTelemetryHealthy"
 
 # --- Pod Security Admission (namespace labels) ----------------------------
 PSA_LABEL_PREFIX = "pod-security.kubernetes.io/"
@@ -126,6 +161,8 @@ ALL_DEPLOY_STATES = tuple(dict.fromkeys(
 _GKE_GENERATIONS = {
     "nvidia-h100-80gb": "h100-sxm",
     "nvidia-h100-mega-80gb": "h100-sxm",
+    "nvidia-a100-80gb": "a100-sxm",
+    "nvidia-gb200": "gb200",
 }
 
 

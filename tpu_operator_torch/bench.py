@@ -31,7 +31,11 @@ its correctness check marks its metric ``_invalid`` and exits 1. Details
 go to stderr, among them ``# kernels: {"triad": N}``, the triad kernel's
 launches in this process. Knobs: GPUOP_BENCH_SKIP_SCALE skips the rider,
 GPUOP_BENCH_SCALE_NODES sizes it (500), GPUOP_BENCH_FLEET_NODES sizes its
-fleet part (10000) and GPUOP_BENCH_SKIP_FLEET skips that part.
+fleet part (10000) and GPUOP_BENCH_SKIP_FLEET skips that part;
+GPUOP_BENCH_PLACEMENT_FLEET_NODES (10000), GPUOP_BENCH_RESTART_NODES
+(10000) and GPUOP_BENCH_FAIRNESS_NODES (300) size the placement-fleet,
+restart and fairness parts, and GPUOP_BENCH_SKIP_PLACEMENT_FLEET,
+_SKIP_RESTART, _SKIP_FAIRNESS and _SKIP_RESHARD skip them.
 """
 
 from __future__ import annotations
@@ -304,6 +308,69 @@ def _controlplane_doc() -> Optional[dict]:
             doc["workers"]["n_gpu_nodes"] = cc_n
         except Exception as e:
             doc["workers"] = {"error": f"{type(e).__name__}: {e}"}
+        # the placement engine: decision latency and the scored-vs-first-
+        # fit steady-state utilization on a churning request stream
+        try:
+            from .benchmarks.controlplane import run_placement_bench
+
+            pl = run_placement_bench(n)
+            doc["placement"] = {
+                "n_gpu_nodes": pl["n_gpu_nodes"],
+                "n_requests": pl["n_requests"],
+                "placed": pl["placed"],
+                "unschedulable": pl["unschedulable"],
+                "p50_ms": round(pl["placement_p50_ms"], 3),
+                "p95_ms": round(pl["placement_p95_ms"], 3),
+                "first_fit_placed": pl["first_fit_placed"],
+            }
+            doc["placement_p99_ms"] = round(pl["placement_p99_ms"], 3)
+            doc["fleet_utilization"] = round(pl["fleet_utilization"], 4)
+            doc["fleet_utilization_first_fit"] = round(
+                pl["fleet_utilization_first_fit"], 4)
+        except Exception as e:
+            doc["placement"] = {"error": f"{type(e).__name__}: {e}"}
+        # the elastic migration against kill-and-reschedule across a
+        # driver rollout on a virtual clock (capped at 100 nodes, as the
+        # rollout is), and the same-domain resize beside it
+        try:
+            from .benchmarks.controlplane import run_migration_bench
+
+            mg = run_migration_bench(
+                min(100, n),
+                include_resize=not os.environ.get(
+                    "GPUOP_BENCH_SKIP_RESHARD"))
+            doc["migration"] = {
+                "n_gpu_nodes": mg["n_gpu_nodes"],
+                "n_requests": mg["n_requests"],
+                "migrations": mg["migrations"],
+                "migrations_aborted": mg["migrations_aborted"],
+                "kills": mg["kills"],
+                "p50_s": round(mg["slice_migration_p50_s"], 2),
+                "kill_p50_s": round(mg["kill_reschedule_p50_s"], 2),
+                "kill_p95_s": round(mg["kill_reschedule_p95_s"], 2),
+                "elastic_lost_steps": mg["elastic_lost_steps"],
+                "kill_lost_steps": mg["kill_lost_steps"],
+                "speedup_p95": round(mg["speedup_p95"], 2),
+            }
+            doc["slice_migration_p95_s"] = round(
+                mg["slice_migration_p95_s"], 2)
+            if "resize_p95_s" in mg:
+                doc["reshard"] = {
+                    "resizes": mg["resizes"],
+                    "resharded": mg["resharded"],
+                    "fallbacks": mg["reshard_fallbacks"],
+                    "p50_s": round(mg["resize_p50_s"], 2),
+                    "full_p50_s": round(mg["resize_full_p50_s"], 2),
+                    "full_p95_s": round(mg["resize_full_p95_s"], 2),
+                    "speedup_p95": round(mg["resize_speedup_p95"], 2),
+                    "bytes_moved": mg["reshard_bytes_moved"],
+                    "bytes_full": mg["reshard_bytes_full"],
+                }
+                doc["resize_p95_s"] = round(mg["resize_p95_s"], 2)
+                doc["reshard_bytes_ratio"] = round(
+                    mg["reshard_bytes_ratio"], 4)
+        except Exception as e:
+            doc["migration"] = {"error": f"{type(e).__name__}: {e}"}
         # fleet scale: cache bytes a node, a paged relist, lane p99s
         if not os.environ.get("GPUOP_BENCH_SKIP_FLEET"):
             try:
@@ -337,6 +404,39 @@ def _controlplane_doc() -> Optional[dict]:
                     fl["fleet_p99_queue_ms"], 4)
             except Exception as e:
                 doc["fleet"] = {"error": f"{type(e).__name__}: {e}"}
+        # placement at fleet scale: the incremental index against the
+        # per-request rescan
+        if not os.environ.get("GPUOP_BENCH_SKIP_PLACEMENT_FLEET"):
+            try:
+                from .benchmarks.controlplane import (
+                    run_placement_fleet_bench,
+                )
+
+                pf_n = int(os.environ.get(
+                    "GPUOP_BENCH_PLACEMENT_FLEET_NODES", "10000"))
+                pf = run_placement_fleet_bench(pf_n)
+                doc["placement_fleet"] = {
+                    "n_gpu_nodes": pf["n_gpu_nodes"],
+                    "baseline_gpu_nodes": pf["baseline_gpu_nodes"],
+                    "n_requests": pf["n_requests"],
+                    "placed": pf["indexed_placed"],
+                    "unschedulable": pf["indexed_unschedulable"],
+                    "baseline_p99_ms": round(
+                        pf["placement_baseline_p99_ms"], 3),
+                    "p99_flatness_x": round(pf["p99_flatness_x"], 2),
+                    "rescan_rps": round(pf["rescan_rps"], 2),
+                    "rescan_p99_ms": round(pf["rescan_p99_ms"], 1),
+                    "storm_speedup_x": round(pf["storm_speedup_x"], 1),
+                    "domains": pf["index_stats"]["domains"],
+                    "spec_shapes": pf["index_stats"]["spec_shapes"],
+                }
+                doc["placement_fleet_p99_ms"] = round(
+                    pf["placement_fleet_p99_ms"], 3)
+                doc["placement_storm_rps"] = round(
+                    pf["placement_storm_rps"], 1)
+            except Exception as e:
+                doc["placement_fleet"] = {
+                    "error": f"{type(e).__name__}: {e}"}
         # the lineage stamp's cost on the workqueue's hot path
         try:
             from .benchmarks.controlplane import run_lineage_bench
@@ -353,6 +453,65 @@ def _controlplane_doc() -> Optional[dict]:
                 lb["lineage_overhead_ratio"], 4)
         except Exception as e:
             doc["lineage"] = {"error": f"{type(e).__name__}: {e}"}
+        # the snapshot-warm restart against a cold relist, wall time to
+        # the first placement decision
+        if not os.environ.get("GPUOP_BENCH_SKIP_RESTART"):
+            try:
+                from .benchmarks.controlplane import run_restart_bench
+
+                rs_n = int(os.environ.get(
+                    "GPUOP_BENCH_RESTART_NODES", "10000"))
+                rs = run_restart_bench(rs_n)
+                doc["restart"] = {
+                    "n_gpu_nodes": rs["n_gpu_nodes"],
+                    "delta_nodes": rs["delta_nodes"],
+                    "snapshot_mb": round(rs["snapshot_bytes"] / 1e6, 1),
+                    "snapshot_write_s": round(rs["snapshot_write_s"], 2),
+                    "restored_objects": rs["restored_objects"],
+                    "restored_kinds": rs["restored_kinds"],
+                    "watch_resumes": rs["watch_resumes"],
+                    "decisions_agree": rs["decisions_agree"],
+                    "cold_s": round(
+                        rs["restart_to_first_decision_cold_s"], 2),
+                }
+                doc["restart_to_first_decision_warm_s"] = round(
+                    rs["restart_to_first_decision_warm_s"], 2)
+                doc["warm_over_cold"] = round(rs["warm_over_cold"], 4)
+            except Exception as e:
+                doc["restart"] = {"error": f"{type(e).__name__}: {e}"}
+        # fair-share admission at saturation: Jain's index and drain
+        # throughput, the quota-ordered gang pass against the priority
+        # kill switch
+        if not os.environ.get("GPUOP_BENCH_SKIP_FAIRNESS"):
+            try:
+                from .benchmarks.controlplane import run_fairness_bench
+
+                fn = int(os.environ.get(
+                    "GPUOP_BENCH_FAIRNESS_NODES", "300"))
+                fb = run_fairness_bench(fn)
+                doc["fairness"] = {
+                    "n_gpu_nodes": fb["n_gpu_nodes"],
+                    "n_requests": fb["n_requests"],
+                    "capacity_chips": fb["capacity_chips"],
+                    "policy": fb["policy"],
+                    "jain_baseline": round(
+                        fb["fairness_jain_baseline"], 4),
+                    "drain_rps_baseline": round(
+                        fb["drain_rps_baseline"], 1),
+                    "placed": fb["placed"],
+                    "placed_baseline": fb["placed_baseline"],
+                    "throughput_vs_baseline": round(
+                        fb["throughput_vs_baseline"], 4),
+                    "attained_over_share": fb["attained_over_share"],
+                    "attained_over_share_baseline":
+                        fb["attained_over_share_baseline"],
+                }
+                doc["fairness_jain_index"] = round(
+                    fb["fairness_jain_index"], 4)
+                doc["saturation_drain_rps"] = round(
+                    fb["saturation_drain_rps"], 1)
+            except Exception as e:
+                doc["fairness"] = {"error": f"{type(e).__name__}: {e}"}
         return doc
     except Exception as e:  # the rider must never kill the record
         return {"error": f"{type(e).__name__}: {e}"}

@@ -31,8 +31,10 @@ Two behaviors the reference's per-node walk never needed:
   semantics).
 
 The migrate stage asks ``controllers/slices.py``'s ``SliceMigrator``
-whether the unit may drain; it raises where a Placed SliceRequest is
-bound to the unit, since the elastic handshake is not ported.
+whether the unit may drain: a Placed SliceRequest bound to the unit is
+checkpointed by its workload and rebound onto replacement capacity first
+(the elastic handshake), or degrades to the hard drain past
+migrationTimeoutSeconds.
 """
 
 from __future__ import annotations

@@ -2,12 +2,13 @@
 
 The port's own copy of ``tpu_operator/runtime/manager.py``, less the
 fleet telemetry plane (``/debug/fleet`` and the cache listeners of
-``metrics/fleet.py``, which fold ICI-domain goodput from SliceRequests and
-come with the placement slice). Its snapshots hold the cache alone:
-the placement index, the SliceRequests' requeue replay and the
-federation router's section come with the placement and federation
-slices. ``/debug/quota`` and ``/debug/cells`` answer "not configured"
-until a reconciler carrying admission or a router is registered, as the
+``metrics/fleet.py``, which fold NVLink-domain goodput from
+SliceRequests) and the federation router's snapshot section, which come
+with their slices. Its snapshots hold the cache and the placement index
+a registered placement reconciler keeps; a restore replays the
+SliceRequests' persisted requeue attempts into it. ``/debug/quota``
+answers once a reconciler carrying admission is registered, and
+``/debug/cells`` answers "not configured" until a router is, as the
 reference's do. One fix: a controller's
 watches are registered at ``start()``, after the snapshot restore, where
 the reference registers them in ``add_reconciler`` — its cache then
@@ -809,6 +810,15 @@ class Manager:
 
     # -- durable snapshots (runtime/snapshot.py) -----------------------------
 
+    def _snapshot_index(self):
+        """The FleetIndex a registered placement reconciler maintains,
+        if any — captured alongside the cache stores."""
+        for ctrl in self.controllers:
+            idx = getattr(ctrl.reconciler, "fleet_index", None)
+            if idx is not None:
+                return idx
+        return None
+
     def restore_from_snapshot(self) -> Optional[dict]:
         """Warm-restore: load the newest valid snapshot and seed the
         cache stores pre-watch, so the informers' subscribe replays fold
@@ -837,6 +847,20 @@ class Manager:
                 outcome["outcome"] = "restored"
                 outcome["path"] = snap.get("_path", "")
                 outcome["snapshot_written_at"] = snap["written_at"]
+                # requeue state lived only in process memory: re-derive
+                # the Unschedulable backoff positions from the persisted
+                # status so a restart doesn't unleash a retry storm
+                seeded = 0
+                for skey, payload in snap.get("stores", {}).items():
+                    if not skey.endswith("/SliceRequest"):
+                        continue
+                    for ctrl in self.controllers:
+                        hook = getattr(ctrl.reconciler,
+                                       "seed_requeue_state", None)
+                        if callable(hook):
+                            seeded += hook(payload.get("objects") or [])
+                if seeded:
+                    outcome["requeue_state_seeded"] = seeded
         except Exception as exc:  # a bad restore must not block startup
             log.exception("snapshot restore failed; cold start")
             outcome["outcome"] = "failed"
@@ -848,7 +872,7 @@ class Manager:
         return outcome
 
     def write_snapshot_now(self) -> Optional[str]:
-        """Capture the cache and persist atomically. Returns the
+        """Capture cache + index and persist atomically. Returns the
         written path, or None when the plane is off / capture failed.
 
         Refuses to capture while the cache breaker is Degraded: the
@@ -868,7 +892,7 @@ class Manager:
                 outcome="skipped_degraded").inc()
             return None
         try:
-            snap = snapshot_mod.capture(cache)
+            snap = snapshot_mod.capture(cache, index=self._snapshot_index())
             path = snapshot_mod.write_snapshot(self.snapshot_dir, snap)
         except Exception:  # pragma: no cover - disk trouble is non-fatal
             log.exception("snapshot write failed")

@@ -116,6 +116,18 @@ def set_nested(obj: dict, value: Any, *path: str) -> None:
     cur[path[-1]] = value
 
 
+def pop_nested(obj: dict, *path: str) -> Any:
+    """Remove and return a nested value; None when the path is absent."""
+    cur: Any = obj
+    for key in path[:-1]:
+        if not isinstance(cur, dict) or key not in cur:
+            return None
+        cur = cur[key]
+    if isinstance(cur, dict):
+        return cur.pop(path[-1], None)
+    return None
+
+
 # Kinds that are cluster-scoped (no namespace) in the fake client.
 CLUSTER_SCOPED_KINDS = {
     "Node",

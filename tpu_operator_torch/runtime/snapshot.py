@@ -1,13 +1,10 @@
 """Durable cache/index snapshots: the crash-safe instant-restart plane.
 
-The port's own copy of ``tpu_operator/runtime/snapshot.py``, less
-``restore_index``, the ``admission`` and ``federation`` sections of a
-capture and their ``restore_admission``/``restore_federation``: the
-placement index (``topology/index.py``'s ``FleetIndex``), admission and
-the federation router are not ported yet, so the port's manager captures
-the cache alone (``index=None``) and these come with the placement and
-federation slices. The layout stays the reference's schema 4, so
-``snapshot_metadata`` still reports whether a file holds them.
+The port's own copy of ``tpu_operator/runtime/snapshot.py``, less the
+``federation`` section of a capture and its ``restore_federation``: the
+federation router is not ported yet, so these come with the federation
+slice. The layout stays the reference's schema 4, so
+``snapshot_metadata`` still reports whether a file holds one.
 
 A cold operator restart at 10k nodes pays full paged relists before its
 first pass. This module makes restart O(changes-since-snapshot) instead:
@@ -44,7 +41,7 @@ import os
 import tempfile
 from typing import Callable, Iterable, Optional
 
-from .objects import FrozenDict, FrozenList, get_nested, thaw_obj
+from .objects import FrozenDict, FrozenList, freeze_obj, get_nested, thaw_obj
 
 logger = logging.getLogger("tpu_operator_torch.snapshot")
 
@@ -116,7 +113,8 @@ def _split_gvk(key: str) -> tuple:
 
 
 def capture(cached, index=None, now: Optional[Callable[[], float]] = None,
-            wall: Optional[float] = None) -> dict:
+            wall: Optional[float] = None,
+            admission: Optional[dict] = None) -> dict:
     """Distill the live cache (and optionally the placement index) into
     one JSON-serializable snapshot dict. Objects are thawed copies —
     the snapshot must not alias the live frozen stores once serialized.
@@ -159,6 +157,10 @@ def capture(cached, index=None, now: Optional[Callable[[], float]] = None,
     }
     if index is not None:
         snap["index_nodes"] = [thaw_obj(n) for n in index.export_nodes()]
+    if admission is not None:
+        # the placement controller's admission_snapshot(): deficit
+        # clocks + preemption-budget buckets, JSON scalars only
+        snap["admission"] = thaw_obj(admission)
     return snap
 
 
@@ -211,6 +213,31 @@ def restore(cached, snap) -> dict:
         kinds += 1
         objects += count
     return {"kinds": kinds, "objects": objects}
+
+
+def restore_index(snap, index_cls=None):
+    """Rebuild a ``FleetIndex`` from the snapshot's node set, or None if
+    the snapshot carries no index section. ``resync()`` against the
+    (snapshot-seeded, watch-healed) cache then folds the delta."""
+    nodes = snap.get("index_nodes")
+    if nodes is None:
+        return None
+    if index_cls is None:
+        from ..topology.index import FleetIndex
+
+        index_cls = FleetIndex
+    return index_cls(freeze_obj(n) for n in nodes)
+
+
+def restore_admission(snap) -> Optional[dict]:
+    """The snapshot's admission section (deficit clocks + budget
+    buckets) as a plain dict, or None when the snapshot predates it or
+    carries garbage — a bad section degrades to fresh accounting, never
+    a crash."""
+    doc = snap.get("admission")
+    if not isinstance(doc, dict):
+        return None
+    return thaw_obj(doc)
 
 
 # -- durable persistence --------------------------------------------------

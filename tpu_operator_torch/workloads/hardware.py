@@ -11,8 +11,6 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Optional
 
-import torch
-
 
 @dataclass(frozen=True)
 class ChipSpec:
@@ -35,12 +33,22 @@ CHIPS = {
     # 64 GB/s each way; a pair joined by an NVLink bridge (600 GB/s
     # bidirectional) exceeds it, which a floor-type gate tolerates
     "h100-pcie": ChipSpec("h100-pcie", 756.0, 80, 2000, 64.0),
+    # A100 SXM4 80GB: 312 TFLOP/s bf16 dense, HBM2e at 2039 GB/s, 12
+    # NVLink-3 links, 600 GB/s bidirectional -> 300 each way
+    "a100-sxm": ChipSpec("a100-sxm", 312.0, 80, 2039, 300.0),
+    # GB200 NVL72, per Blackwell GPU: 180 PFLOP/s dense bf16 over 72 GPUs
+    # (the data sheet's 360 is with sparsity), 13.4 TB of HBM3e at 576
+    # TB/s (186 GB and 8 TB/s a GPU), NVLink-5 1.8 TB/s bidirectional ->
+    # 900 each way
+    "gb200": ChipSpec("gb200", 2500.0, 186, 8000, 900.0),
 }
 
 # substrings of a card's name, most specific first, after '-' and '_'
 # became spaces: torch.cuda.get_device_name() and NVML's name, the
 # feature label's form of it (NVIDIA-H100-80GB-HBM3) and GKE's
 # accelerator label (nvidia-h100-80gb, nvidia-h100-mega-80gb, both SXM).
+# The A100 is known by its SXM4 name alone: GKE's nvidia-a100-80gb (A2
+# Ultra's SXM4 card) and the PCIe card's name share "a100 80gb".
 # An unknown card maps to None and its proofs report without gating
 _KIND_HINTS = (
     ("h100 pcie", "h100-pcie"),
@@ -48,6 +56,8 @@ _KIND_HINTS = (
     ("h100 sxm", "h100-sxm"),
     ("h100 mega 80gb", "h100-sxm"),
     ("nvidia h100 80gb", "h100-sxm"),
+    ("a100 sxm", "a100-sxm"),
+    ("gb200", "gb200"),
 )
 
 
@@ -62,6 +72,8 @@ def chip_spec_for(device_kind: str) -> Optional[ChipSpec]:
 
 def device_kind(device) -> str:
     """The card name of a torch device, ``"cpu"`` for the CPU."""
+    import torch
+
     device = torch.device(device)
     if device.type != "cuda":
         return device.type
@@ -71,6 +83,8 @@ def device_kind(device) -> str:
 def detect() -> tuple:
     """(platform, device_count, device_kind, ChipSpec|None) for CUDA, or
     ``("cpu", 1, "cpu", None)`` where there is no card."""
+    import torch
+
     if not torch.cuda.is_available():
         return "cpu", 1, "cpu", None
     kind = torch.cuda.get_device_name(0)
