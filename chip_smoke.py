@@ -2618,6 +2618,8 @@ def reconcile_phase(torch, card: str, extra_env: dict | None = None,
     log(f"  ms per state in the ready pass (operand_sync_duration, "
         f"{card}): {per_state}")
     spec = thaw_obj(client.get(V1, KIND_CLUSTER_POLICY, req.name))
+    # the spec the ready passes ran (phase L holds the install bundle to it)
+    figures["policy_spec"] = thaw_obj(spec["spec"])
     spec["spec"]["metricsExporter"] = {"enabled": False}
     client.update(spec)
     reconcile("disable_pass")
@@ -3965,6 +3967,487 @@ def migration_phase(torch, card: str, client, mgr, api, base: dict,
             "phase_s": time.perf_counter() - t_start}
 
 
+# phase L: fleet telemetry and the install surface, under phase H's
+# restarted manager after K
+PUBLISH_INTERVAL_S = 0.25    # the digest publishers' cadence (30 s a node)
+TELEMETRY_TIMEOUT_S = 60
+CLI_TIMEOUT_S = 120
+TEMP_TOLERANCE_C = 3.0
+HBM_FREE_TOLERANCE = 0.02
+MUST_GATHER_DIR = os.path.join("build", "smoke-must-gather")
+
+
+class ClusterReadApi:
+    """A FakeClient served read-only over HTTP on 127.0.0.1, for the CLIs
+    that reach a cluster through $KUBECONFIG (``gpuop-cfg status``,
+    ``gpuop-must-gather``): GET of a collection (one namespace or all,
+    a label selector of ``k=v``, ``k`` and ``!k`` terms) and of one
+    object, for the kinds those CLIs read; anything else is 404."""
+
+    KINDS = ("Node", "Pod", "ConfigMap", "Service", "Event", "Namespace",
+             "DaemonSet", "Lease", "PodDisruptionBudget", "GPUClusterPolicy",
+             "GPUDriver", "SliceRequest", "GPUQuota")
+
+    def __init__(self, client):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+        from urllib.parse import parse_qs, urlparse
+
+        from tpu_operator_torch.runtime.client import ListOptions
+        from tpu_operator_torch.runtime.kubeclient import plural_of
+
+        kinds = {plural_of(k): k for k in self.KINDS}
+
+        def selector(text: str) -> dict:
+            match, exprs = {}, []
+            for term in filter(None, text.split(",")):
+                if "=" in term:
+                    k, _, v = term.partition("=")
+                    match[k] = v
+                elif term.startswith("!"):
+                    exprs.append({"key": term[1:],
+                                  "operator": "DoesNotExist"})
+                else:
+                    exprs.append({"key": term, "operator": "Exists"})
+            return {"matchLabels": match, "matchExpressions": exprs}
+
+        class Handler(BaseHTTPRequestHandler):
+            def _answer(self, code, doc):
+                body = json.dumps(doc).encode()
+                self.send_response(code)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def do_GET(self):
+                u = urlparse(self.path)
+                segs = [s for s in u.path.split("/") if s]
+                if segs[:1] == ["api"]:
+                    av, rest = segs[1], segs[2:]
+                elif segs[:1] == ["apis"]:
+                    av, rest = "/".join(segs[1:3]), segs[3:]
+                else:
+                    rest = []
+                ns = None
+                if rest[:1] == ["namespaces"] and len(rest) >= 3:
+                    ns, rest = rest[1], rest[2:]
+                if not rest or rest[0] not in kinds:
+                    return self._answer(404, {"reason": "NotFound"})
+                kind = kinds[rest[0]]
+                if len(rest) > 1:
+                    obj = client.get_or_none(av, kind, rest[1], ns)
+                    if obj is None:
+                        return self._answer(404, {"reason": "NotFound"})
+                    return self._answer(200, obj)
+                q = parse_qs(u.query)
+                opts = ListOptions(namespace=ns, label_selector=selector(
+                    q["labelSelector"][0]) if "labelSelector" in q else None)
+                self._answer(200, {"apiVersion": av, "kind": f"{kind}List",
+                                   "metadata": {"resourceVersion": "1"},
+                                   "items": list(client.list(av, kind,
+                                                             opts))})
+
+            def log_message(self, *args):
+                pass
+
+        self.server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        threading.Thread(target=self.server.serve_forever,
+                         daemon=True).start()
+        self.url = f"http://127.0.0.1:{self.server.server_address[1]}"
+
+    def kubeconfig(self, path: str) -> str:
+        """A kubeconfig naming this server, written to ``path``."""
+        with open(path, "w") as f:
+            json.dump({"apiVersion": "v1", "kind": "Config",
+                       "current-context": "smoke",
+                       "contexts": [{"name": "smoke", "context": {
+                           "cluster": "smoke", "user": "smoke",
+                           "namespace": RECONCILE_NAMESPACE}}],
+                       "clusters": [{"name": "smoke",
+                                     "cluster": {"server": self.url}}],
+                       "users": [{"name": "smoke",
+                                  "user": {"token": "smoke"}}]}, f)
+        return path
+
+    def stop(self):
+        self.server.shutdown()
+        self.server.server_close()
+
+
+class TimedPatches:
+    """The client a digest publisher writes through: each patch's start
+    time, by (node, digest seq)."""
+
+    def __init__(self, client, published: dict):
+        self.client, self.published = client, published
+
+    def patch(self, api_version, kind, name, body, *args, **kwargs):
+        from tpu_operator_torch.api import labels as L
+
+        raw = body["metadata"]["annotations"][L.HEALTH_DIGEST]
+        self.published[(name, json.loads(raw)["seq"])] = time.perf_counter()
+        return self.client.patch(api_version, kind, name, body, *args,
+                                 **kwargs)
+
+
+def fleet_phase(torch, card: str, client, mgr, api, base: dict,
+                scripts: dict, valdir: str, ran_spec: dict) -> dict:
+    """Phase L under phase H's restarted manager, after K: the card's
+    health digests through the Manager's fleet fold; a lost card on the
+    second node condemned, its condition written, and K's request
+    drained back to the card's node; the CLIs on the live cluster; and
+    the install bundle against ``ran_spec``, the policy spec phase G's
+    ready passes ran (H created the same; J has since turned its
+    autoUpgrade on)."""
+    from tpu_operator_torch.api import labels as L
+    from tpu_operator_torch.api import slicerequest as sr
+    from tpu_operator_torch.api.clusterpolicy import (
+        KIND_CLUSTER_POLICY, V1, GPUClusterPolicySpec)
+    from tpu_operator_torch.api.crd import cluster_policy_crd
+    from tpu_operator_torch.api.validate import admission_errors
+    from tpu_operator_torch.cli.must_gather import FEDERATION_ABSENT
+    from tpu_operator_torch.controllers.telemetry_controller import (
+        TelemetryReconciler)
+    from tpu_operator_torch.metrics import health_engine as he
+    from tpu_operator_torch.metrics.fleet import (
+        FLEET_TELEMETRY, domain_of, node_generation, rollup_nodes)
+    from tpu_operator_torch.runtime.objects import (
+        annotations_of, get_nested, thaw_obj, yaml_module)
+    from tpu_operator_torch.state.operands import build_states
+    from tpu_operator_torch.state.state import SyncContext
+
+    t_start = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    url = f"http://127.0.0.1:{mgr._http.server_address[1]}"
+    key = f"{TRAINER_NAMESPACE}/{TRAINER_REQUEST}"
+    node_a, node_b = RECONCILE_NODE, MIGRATION_NODE
+    lock = threading.Lock()
+    published, folded, conditions, placements = {}, {}, [], []
+
+    def condition_of(node):
+        return next((c for c in get_nested(node, "status", "conditions",
+                                           default=[]) or []
+                     if c.get("type") == L.TELEMETRY_CONDITION), None)
+
+    def on_fold(event_type, node):
+        # registered after the fold's own listener: it runs once the
+        # fold has taken the digest
+        name = node["metadata"]["name"]
+        d = FLEET_TELEMETRY.digest_of(name)
+        if d is not None:
+            with lock:
+                folded.setdefault((name, d["seq"]), (
+                    time.perf_counter(), FLEET_TELEMETRY.is_condemned(name),
+                    FLEET_TELEMETRY.fail_streak(name)))
+
+    def on_node(event):
+        name = event.obj["metadata"]["name"]
+        cond = condition_of(event.obj)
+        with lock:
+            if name in (node_a, node_b) and (
+                    not conditions or conditions[-1][1:] !=
+                    (name, cond and cond["status"])):
+                conditions.append((time.perf_counter(), name,
+                                   cond and cond["status"]))
+
+    def on_request(event):
+        if event.obj["metadata"]["name"] != TRAINER_REQUEST:
+            return
+        st = event.obj.get("status") or {}
+        with lock:
+            placements.append((time.perf_counter(), st.get("phase"),
+                               list(st.get("nodes") or []),
+                               st.get("lastEvictionReason")))
+
+    def fold_of(name, seq):
+        with lock:
+            return folded.get((name, seq))
+
+    def published_ms(name, seq):
+        return (fold_of(name, seq)[0] - published[(name, seq)]) * 1e3
+
+    def publisher(name, engine, stop):
+        th = threading.Thread(target=he.publish_digests, args=(
+            TimedPatches(client, published), name, engine),
+            kwargs={"generation": gen, "interval": PUBLISH_INTERVAL_S,
+                    "stop_event": stop}, name=f"smoke-digests-{name}",
+            daemon=True)
+        th.start()
+        return th
+
+    # L0. the telemetry reconciler on the manager wire_manager built: the
+    # operator registers none (C9, kept)
+    if "telemetry" in [c.name for c in mgr.controllers]:
+        raise RuntimeError("wire_manager registered a telemetry reconciler")
+    ctrl = mgr.add_reconciler(TelemetryReconciler(client=mgr.client))
+    ctrl.start()
+    cache = mgr.find_cache()
+    unwatch = [cache.add_delta_listener("v1", "Node", on_fold),
+               client.watch("v1", "Node", on_node),
+               client.watch(sr.V1ALPHA1, sr.KIND_SLICE_REQUEST, on_request)]
+    gen = node_generation(client.get("v1", "Node", node_a))
+    stops = [threading.Event(), threading.Event()]
+    threads = []
+    bridge = None
+    work = tempfile.mkdtemp(prefix="gpu-fleet-")
+    collect_local = he.collect_local
+    try:
+        # L1. the card's digests: NVML through the health engine
+        eng_a = he.HealthEngine()
+        eng_a.collect_once()
+        smi_temp = max(float(r[0]) for r in smi_query("temperature.gpu"))
+        free = min(f / t for f, t in (torch.cuda.mem_get_info(i)
+                                      for i in range(n_cards)))
+        threads.append(publisher(node_a, eng_a, stops[0]))
+        wait_for(lambda: fold_of(node_a, 3), "three folded digests of "
+                 + node_a, TELEMETRY_TIMEOUT_S, 0.002)
+        stops[0].set()
+        threads[0].join(timeout=10)
+        digest_a = FLEET_TELEMETRY.digest_of(node_a)
+        code, body = http_get(url + "/debug/fleet")
+        fleet = json.loads(body)
+        dom = fleet["domains"][domain_of(client.get("v1", "Node", node_a))]
+        fold_ms = [published_ms(node_a, seq)
+                   for seq in range(1, digest_a["seq"] + 1)]
+        log(f"  L1: {node_a}'s health engine over NVML published "
+            f"{digest_a['seq']} digests: grades {digest_a['grades']}, "
+            f"temp_max_c {digest_a['temp_max_c']} (nvidia-smi {smi_temp}), "
+            f"hbm_free_frac {digest_a['hbm_free_frac']} (mem_get_info "
+            f"{free:.4f}); /debug/fleet {code}: totals {fleet['totals']}, "
+            f"domain {dom}; publish -> fold {fold_ms} ms ({card})")
+        if code != 200 or set(digest_a["grades"].values()) != {"ok"} or \
+                len(digest_a["grades"]) != n_cards:
+            raise RuntimeError(f"the card's digest: {digest_a}")
+        if abs(digest_a["temp_max_c"] - smi_temp) > TEMP_TOLERANCE_C or \
+                abs(digest_a["hbm_free_frac"] - free) > HBM_FREE_TOLERANCE:
+            raise RuntimeError(f"the digest disagrees with nvidia-smi and "
+                               f"torch.cuda: {digest_a}")
+        if (fleet["totals"]["reporting"], fleet["totals"]["silent"],
+                fleet["totals"]["degraded_chips"]) != (1, 1, 0) or \
+                dom["temp_max_c"] != digest_a["temp_max_c"] or \
+                dom["hbm_headroom_frac"] != digest_a["hbm_free_frac"]:
+            raise RuntimeError(f"/debug/fleet: {fleet}")
+
+        # L2. a card lost on the second node, by the health engine's own
+        # rule (the first enumeration pins the count), condemns it
+        eng_b = he.HealthEngine()
+        eng_b.collect_once()
+        he.collect_local = lambda: []
+        try:
+            eng_b.collect_once()
+        finally:
+            he.collect_local = collect_local
+        verdict = eng_b.health()
+        if verdict["reasons"] != [f"{n_cards} of {n_cards} chips missing"]:
+            raise RuntimeError(f"the lost card's verdict: {verdict}")
+        threads.append(publisher(node_b, eng_b, stops[1]))
+        wait_for(lambda: any(c[1:] == (node_b, "False") for c in conditions)
+                 and any(p[1] == sr.PHASE_PLACED and p[2] == [node_a]
+                         for p in placements),
+                 "the condemnation to move the request", TELEMETRY_TIMEOUT_S,
+                 0.002)
+        with lock:
+            t_cond = next(t for t, n, c in conditions
+                          if (n, c) == (node_b, "False"))
+            t_placed = next(t for t, ph, nodes, _ in placements
+                            if ph == sr.PHASE_PLACED and nodes == [node_a])
+            evicted = [r for _, ph, _, r in placements
+                       if ph == sr.PHASE_PENDING]
+        folds = [fold_of(node_b, seq)[1:] for seq in (1, 2, 3)]
+        cond_ms = (t_cond - published[(node_b, 3)]) * 1e3
+        placed_ms = (t_placed - t_cond) * 1e3
+        cr = client.get(sr.V1ALPHA1, sr.KIND_SLICE_REQUEST, TRAINER_REQUEST,
+                        TRAINER_NAMESPACE)
+        leases = {n: annotations_of(client.get("v1", "Node", n)).get(
+            L.PLACED_BY) for n in (node_a, node_b)}
+        written = condition_of(client.get("v1", "Node", node_b))
+        log(f"  L2: {node_b}'s engine: {verdict['reasons']}; the fold after "
+            f"FAIL 1, 2, 3 (condemned, streak): {folds}; {written}; the "
+            f"request drained ({evicted}) and placed on "
+            f"{cr['status']['nodes']}, leases {leases}, migration "
+            f"{get_nested(cr, 'status', 'migration', 'phase')!r} "
+            f"(a hard drain: no handshake)")
+        log(f"  third FAIL publish -> GPUTelemetryHealthy=False "
+            f"{cond_ms:.3f} ms; condition -> re-Placed {placed_ms:.3f} ms "
+            f"({card})")
+        if folds != [(False, 1), (False, 2), (True, 3)] or \
+                written["reason"] != "TelemetryCondemned":
+            raise RuntimeError(f"the condemnation: {folds}, {written}")
+        if evicted[:1] != [f"node {node_b} condemned by telemetry"] or \
+                cr["status"]["nodes"] != [node_a] or \
+                leases != {node_a: key, node_b: None}:
+            raise RuntimeError(f"the drain: {evicted}, {cr['status']}, "
+                               f"{leases}")
+
+        # two OK digests absolve it: the card is back
+        eng_b.collect_once()
+        with lock:
+            seq_ok = max(seq for n, seq in published if n == node_b) + 1
+        wait_for(lambda: any(c[1:] == (node_b, "True") for c in conditions),
+                 "the absolution", TELEMETRY_TIMEOUT_S, 0.002)
+        stops[1].set()
+        threads[1].join(timeout=10)
+        with lock:
+            t_true = next(t for t, n, c in conditions
+                          if (n, c) == (node_b, "True"))
+            oks = [seq for (n, seq), v in folded.items()
+                   if n == node_b and seq >= seq_ok and v[0] <= t_true]
+        log(f"  {node_b} absolved after {len(oks)} OK digest(s) from seq "
+            f"{seq_ok} (GPUTelemetryHealthy=True); the request stays on "
+            f"{node_a}")
+        if FLEET_TELEMETRY.condemned() or len(oks) < 2:
+            raise RuntimeError(f"the absolution: {FLEET_TELEMETRY.condemned()}"
+                               f", OK digests {oks}")
+        if not mgr.wait_idle(timeout=60, horizon=1.0):
+            raise RuntimeError("the manager did not go idle after L2")
+
+        # L3. the CLIs on the live cluster, against the manager's port
+        bridge = ClusterReadApi(client)
+        env = dict(os.environ, PYTHONPATH=os.getcwd(),
+                   KUBECONFIG=bridge.kubeconfig(os.path.join(
+                       work, "kubeconfig")))
+        env.pop("KUBERNETES_SERVICE_HOST", None)
+
+        def cli(*argv):
+            t0 = time.perf_counter()
+            out = subprocess.run([sys.executable, "-m", *argv], env=env,
+                                 capture_output=True, text=True,
+                                 timeout=CLI_TIMEOUT_S)
+            return out, time.perf_counter() - t0
+
+        fleet = json.loads(http_get(url + "/debug/fleet")[1])
+        cfg = "tpu_operator_torch.cli.gpuop_cfg"
+        status, status_s = cli(cfg, "status", "-o", "json",
+                               "--operator-url", url)
+        report = json.loads(status.stdout)
+        top, top_s = cli(cfg, "top", "--url", url, "-o", "json")
+        top_text, _ = cli(cfg, "top", "--url", url)
+        want = {"degradedChips": fleet["totals"]["degraded_chips"],
+                "chips": fleet["totals"]["chips"],
+                "reporting": fleet["totals"]["reporting"],
+                "condemned": fleet["totals"]["condemned"],
+                "worstDomain": fleet["worst_domain"]}
+        unready = [(o["name"], o["reason"]) for o in report["operands"]
+                   if not o["ready"]]
+        log(f"  L3: gpuop-cfg status -o json rc {status.returncode} "
+            f"(ready {report.get('ready')}: CRs "
+            f"{[(c['kind'], c['name'], c['state']) for c in report['crs']]}"
+            f", operands not ready {unready}) in {status_s:.3f} s: fleet "
+            f"{report.get('fleet')}; /debug/fleet {want}; gpuop-cfg top "
+            f"rc {top.returncode} in {top_s:.3f} s:")
+        for line in top_text.stdout.splitlines():
+            log(f"    {line}")
+        if report.get("fleet") != want or json.loads(top.stdout)[
+                "totals"] != fleet["totals"] or top.returncode != 0 or \
+                json.loads(top.stdout)["worst_domain"] != \
+                fleet["worst_domain"]:
+            raise RuntimeError(f"status/top disagree with /debug/fleet: "
+                               f"{report.get('fleet')}, {top.stdout}")
+        shutil.rmtree(MUST_GATHER_DIR, ignore_errors=True)
+        gathered, gather_s = cli("tpu_operator_torch.cli.must_gather", "-o",
+                                 MUST_GATHER_DIR)
+        summary = json.load(open(os.path.join(MUST_GATHER_DIR,
+                                              "summary.json")))
+        bundle = json.load(open(os.path.join(MUST_GATHER_DIR, "fleet",
+                                             "fleet.json")))
+        rolled = rollup_nodes(client.list("v1", "Node"))
+        log(f"  gpuop-must-gather rc {gathered.returncode} in "
+            f"{gather_s:.3f} s into {MUST_GATHER_DIR}: kinds "
+            f"{summary['kinds']}, errors {summary['errors']}; fleet.json "
+            f"{'==' if bundle == rolled else '!='} rollup_nodes ({card})")
+        if gathered.returncode != 0 or bundle != rolled or \
+                summary["errors"] != [FEDERATION_ABSENT]:
+            raise RuntimeError(f"must-gather: {summary}, {gathered.stderr}")
+        shutil.rmtree(MUST_GATHER_DIR, ignore_errors=True)
+
+        # L4. the install bundle at default values against the policy G
+        # and H reconciled (their threshold, where NVLINK_THRESHOLD moved
+        # it, given as a values file)
+        live = client.get(V1, KIND_CLUSTER_POLICY, "gpu-cluster-policy")
+        ran = dict(thaw_obj(live), spec=thaw_obj(ran_spec))
+        values = {}
+        if "NVLINK_THRESHOLD" in os.environ:
+            values = {"clusterPolicy": {"spec": {"validator": {
+                "nvlinkBandwidthThreshold": ran_spec["validator"][
+                    "nvlinkBandwidthThreshold"]}}}}
+        values_file = os.path.join(work, "values.yaml")
+        with open(values_file, "w") as f:
+            json.dump(values, f)
+        generated, gen_s = cli(cfg, "generate", "all", "--values",
+                               values_file)
+        yaml = yaml_module()
+        docs = [d for d in yaml.safe_load_all(generated.stdout) if d]
+        policy = next(d for d in docs if d["kind"] == KIND_CLUSTER_POLICY)
+        policy_file = os.path.join(work, "policy.yaml")
+        with open(policy_file, "w") as f:
+            yaml.safe_dump(policy, f)
+        validated, val_s = cli(cfg, "validate", "clusterpolicy", "-f",
+                               policy_file)
+        schema = cluster_policy_crd()["spec"]["versions"][0]["schema"][
+            "openAPIV3Schema"]
+        admitted = admission_errors(thaw_obj(policy), None, schema)
+        spec_ran = GPUClusterPolicySpec.from_obj(ran).to_obj()
+        spec_bundle = GPUClusterPolicySpec.from_obj(policy).to_obj()
+        # H's live policy is G's but for J's upgrade knob
+        spec_live = GPUClusterPolicySpec.from_obj(live).to_obj()
+        h_is_g = all(spec_live[k] == spec_ran[k] for k in spec_ran
+                     if k != "upgradePolicy")
+
+        def daemonsets(p):
+            ctx = SyncContext(client=client, policy=p,
+                              spec=GPUClusterPolicySpec.from_obj(p),
+                              namespace=RECONCILE_NAMESPACE)
+            return json.loads(json.dumps([
+                o for s in build_states() if s.enabled(ctx)
+                for o in s.render(ctx) if o["kind"] == "DaemonSet"]))
+
+        rendered = daemonsets(ran)
+        same = rendered == daemonsets(dict(thaw_obj(live),
+                                           spec=policy["spec"]))
+        log(f"  L4: gpuop-cfg generate all --values {values} rc "
+            f"{generated.returncode} in {gen_s:.3f} s: "
+            f"{[d['kind'] for d in docs]}; gpuop-cfg validate rc "
+            f"{validated.returncode} in {val_s:.3f} s "
+            f"({validated.stdout.strip()}); CEL admission {admitted}; the "
+            f"bundle's spec {'==' if spec_bundle == spec_ran else '!='} "
+            f"the one G and H ran (H's live policy "
+            f"{'is' if h_is_g else 'is NOT'} G's but for J's "
+            f"upgradePolicy {live['spec'].get('upgradePolicy')}); "
+            f"{len(rendered)} DaemonSets rendered "
+            f"{'alike' if same else 'DIFFERENTLY'} from both ({card})")
+        if generated.returncode != 0 or validated.returncode != 0 or \
+                admitted or spec_bundle != spec_ran or not h_is_g or \
+                not same or not rendered:
+            raise RuntimeError(f"the install bundle: {validated.stderr} "
+                               f"{admitted}")
+        return {"card": card,
+                "digests_card_node": digest_a["seq"],
+                "digest_temp_max_c": digest_a["temp_max_c"],
+                "smi_temp_c": smi_temp,
+                "digest_hbm_free_frac": digest_a["hbm_free_frac"],
+                "torch_hbm_free_frac": free,
+                "publish_to_fold_ms": fold_ms,
+                "fail3_to_condition_ms": cond_ms,
+                "condition_to_placed_ms": placed_ms,
+                "condemn_folds": folds,
+                "status_s": status_s, "top_s": top_s,
+                "must_gather_s": gather_s, "generate_s": gen_s,
+                "validate_s": val_s, "daemonsets": len(rendered),
+                "phase_s": time.perf_counter() - t_start}
+    finally:
+        he.collect_local = collect_local
+        for stop in stops:
+            stop.set()
+        for th in threads:
+            th.join(timeout=10)
+        for u in unwatch:
+            u()
+        if bridge is not None:
+            bridge.stop()
+        shutil.rmtree(work, ignore_errors=True)
+        shutil.rmtree(MUST_GATHER_DIR, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -4312,13 +4795,32 @@ def main() -> int:
             raise RuntimeError("phase K launched a kernel in this process")
         return figures
 
-    def phases_jk(**live):
-        j = phase_j(**live)
-        return {"j": j, "k": phase_k(j["rollout_s"], **live)}
+    def phase_l(**live):
+        hbm_probe.triad_.launches = 0
+        fa.flash_attention_blocks.launches = 0
+        log("# phase L: fleet telemetry and the install surface under the "
+            "manager (the card's digests through the fleet fold, a lost "
+            "card condemning the second node and draining K's request, "
+            "gpuop-cfg and gpuop-must-gather on the live cluster, the "
+            "install bundle against the policy G and H ran)")
+        figures = fleet_phase(torch, card, ran_spec=reconcile["policy_spec"],
+                              **live)
+        figures["launches_in_process"] = {
+            "triad": hbm_probe.triad_.launches,
+            "flash_attention": fa.flash_attention_blocks.launches}
+        log(f"  kernel launches in phase L: {figures['launches_in_process']}")
+        if any(figures["launches_in_process"].values()):
+            raise RuntimeError("phase L launched a kernel in this process")
+        return figures
 
-    runtime = runtime_phase(torch, card, rollout=phases_jk)
-    jk = runtime.pop("rollout")
-    rollout, migration = jk["j"], jk["k"]
+    def phases_jkl(**live):
+        j = phase_j(**live)
+        return {"j": j, "k": phase_k(j["rollout_s"], **live),
+                "l": phase_l(**live)}
+
+    runtime = runtime_phase(torch, card, rollout=phases_jkl)
+    jkl = runtime.pop("rollout")
+    rollout, migration, fleet = jkl["j"], jkl["k"], jkl["l"]
     runtime["operator_process"] = h0
     runtime["launches_in_process"] = launches_h
     log(f"  kernel launches in phase H: triad {runtime['triad_launches']} "
@@ -4329,6 +4831,7 @@ def main() -> int:
     log(json.dumps({"runtime": runtime}))
     log(json.dumps({"rollout": rollout}))
     log(json.dumps({"migration": migration}))
+    log(json.dumps({"fleet": fleet}))
 
     # 14. the kernel table
     kernels = [{

@@ -1,7 +1,7 @@
 """The port's headline bench (``python -m tpu_operator_torch.bench``)
 against the repository's root ``bench.py``: its control-plane rider has
 the reference rider's keys, less the parts whose benchmarks wait for
-modules not ported (fleet telemetry, federation), under
+modules not ported (federation), under
 ``torch_naming.py``'s ``BENCH_KEYS``, and the same deterministic values at
 small ``n`` (each side's benchmarks shrunk alike: no apiserver latency, a
 60-node fleet over a 50-node baseline, a 2000-item lineage round, a
@@ -28,9 +28,9 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 N_NODES = 20
 FLEET_NODES = 60
 # the reference rider's parts whose benchmarks need modules not ported
-# (fleet telemetry, federation; ROADMAP.md §A items 4 and 6)
-NOT_PORTED = {"telemetry", "telemetry_overhead_ratio", "federation",
-              "federation_route_p99_ms", "federation_quality_vs_flat"}
+# (federation; ROADMAP.md §A item 6)
+NOT_PORTED = {"federation", "federation_route_p99_ms",
+              "federation_quality_vs_flat"}
 
 
 def shrink(monkeypatch, mod, baseline_kw):

@@ -124,6 +124,25 @@ def test_port_imports_without_jax_or_the_jax_package():
         "tpu_operator_torch.runtime.manager",
         "tpu_operator_torch.cli.operator",
         "tpu_operator_torch.benchmarks.controlplane",
+        # fleet telemetry, the CRD schemas, admission, the deploy tree
+        # and the CLIs
+        "tpu_operator_torch.metrics.fleet",
+        "tpu_operator_torch.controllers.telemetry_controller",
+        "tpu_operator_torch.api.crd",
+        "tpu_operator_torch.api.cel",
+        "tpu_operator_torch.api.validate",
+        "tpu_operator_torch.api.versioned",
+        "tpu_operator_torch.api.registry",
+        "tpu_operator_torch.deploy",
+        "tpu_operator_torch.deploy.packaging",
+        "tpu_operator_torch.deploy.values",
+        "tpu_operator_torch.deploy.helmchart",
+        "tpu_operator_torch.deploy.csv",
+        "tpu_operator_torch.deploy.apply",
+        "tpu_operator_torch.deploy.diff",
+        "tpu_operator_torch.cli.maintenance",
+        "tpu_operator_torch.cli.must_gather",
+        "tpu_operator_torch.cli.gpuop_cfg",
     }
     assert expected <= set(res["modules"])
     assert res["leaked"] == []

@@ -212,3 +212,54 @@ def test_accelerator_generation(value):
     got = L.accelerator_generation(value)
     assert got == GENERATIONS[value]
     assert got == "" or got in CHIPS
+
+
+def test_install_surface_names():
+    """The rows of ROADMAP.md §C for fleet telemetry and the install
+    surface: CRD plurals and short names, the CLIs, the typed clientset,
+    the chart's tree, the values key, the bench knobs and the goodput
+    bar's generations."""
+    import pathlib
+
+    import torch_naming as N
+    from tpu_operator.api import crd as rcrd
+    from tpu_operator.api import versioned as rver
+    from tpu_operator.deploy import helmchart as rhelm
+    from tpu_operator.deploy import values as rvalues
+    from tpu_operator.metrics import fleet as rfleet
+    from tpu_operator_torch.api import crd, versioned
+    from tpu_operator_torch.deploy import helmchart, values
+    from tpu_operator_torch.metrics import fleet
+
+    for rc, c in zip(rcrd.all_crds(), crd.all_crds()):
+        rnames, names = rc["spec"]["names"], c["spec"]["names"]
+        for key in ("plural", "singular"):
+            assert names[key] == N.CRD_NAMES.get(rnames[key], rnames[key])
+        assert names["shortNames"] == [N.CRD_NAMES.get(s, s)
+                                       for s in rnames["shortNames"]]
+    for ref, port in N.CLIENTSET.items():
+        assert hasattr(rver, ref) or hasattr(rver.Clientset, ref) or \
+            hasattr(rver.TpuV1alpha1, ref), ref
+        assert hasattr(versioned, port) or hasattr(versioned.Clientset,
+                                                   port) or \
+            hasattr(versioned.GpuV1alpha1, port), port
+        assert not hasattr(versioned, ref)
+    root = pathlib.Path(__file__).resolve().parent.parent
+    assert rhelm.CHART_DIR == root / N.CHART_DIR[0]
+    assert helmchart.CHART_DIR == root / N.CHART_DIR[1]
+    assert values.TOP_LEVEL_KEYS == {N.VALUES_KEYS.get(k, k)
+                                     for k in rvalues.TOP_LEVEL_KEYS}
+    text = (root / "pyproject.toml").read_text()
+    for ref, port in N.CLIS.items():
+        assert f"\n{ref} = " in text and f"\n{port} = " in text
+    for ref, port in N.BENCH_ENV.items():
+        assert ref.replace("TPUOP_", "GPUOP_") == port
+    assert set(fleet.IDEAL_STEPS_PER_S) == {
+        g for gens in N.GOODPUT_GENERATIONS.values() for g in gens}
+    for ref_gen, gens in N.GOODPUT_GENERATIONS.items():
+        for gen in gens:
+            if ref_gen == "v5e":   # an H100 pool's bar, declared
+                assert fleet.ideal_steps_per_s(gen) == 0.15
+            else:
+                assert fleet.ideal_steps_per_s(gen) == \
+                    rfleet.ideal_steps_per_s(ref_gen)

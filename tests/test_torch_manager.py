@@ -116,9 +116,15 @@ class Side:
 
 @pytest.fixture(scope="module")
 def sides():
+    from tpu_operator.metrics.fleet import FLEET_TELEMETRY as RFLEET
+    from tpu_operator_torch.metrics.fleet import FLEET_TELEMETRY
+
     for t, tlm in ((rtr.TRACER, rtl.TIMELINE), (tr.TRACER, tl.TIMELINE)):
         t.reset(enabled=True)
         tlm.reset(enabled=True)
+    # the process-wide folds may hold an earlier test's nodes
+    RFLEET.reset()
+    FLEET_TELEMETRY.reset()
     pair = [Side(True), Side(False)]
     for s in pair:
         s.mgr.start()
@@ -256,18 +262,18 @@ def test_debug_bodies_agree(sides):
                                           "/debug/slo?window=-1", "/nope")],
         })
     rb, pb = bodies
-    # the reference's status rows also read SliceRequests (the migration
-    # half of controllers/slices.py, which comes with placement)
     rb["kinds"] = {"/".join(N.name(p) for p in k.rpartition("/")[::2]): v
-                   for k, v in rb["kinds"].items()
-                   if not k.endswith("/SliceRequest")}
+                   for k, v in rb["kinds"].items()}
     for b in (rb, pb):  # the snapshot plane is off in both
         assert b["snapshot"]["enabled"] is False
     assert pb == rb
     assert ("state", "ready") in pb["timeline"]
     assert pb["bad"] == [400, 400, 400, 404]
-    # the fleet plane comes with placement
-    assert port.get("/debug/fleet")[0] == 404
+    # both managers attach the fleet fold at start
+    (code, fleet), (rcode, rfleet) = (s.get("/debug/fleet") for s in (port,
+                                                                      ref))
+    assert code == rcode == 200
+    assert json.loads(fleet)["totals"] == json.loads(rfleet)["totals"]
 
 
 def test_node_watch_labels_through_the_name_map():

@@ -72,7 +72,8 @@ def test_command_resolves_to_a_port_agent(command):
 
 def test_reference_scripts_stay():
     for name, target in SCRIPTS.items():
-        if name.startswith("gpu-"):
+        # the port's entries: gpu-* agents and the gpuop-* CLIs
+        if name.startswith(("gpu-", "gpuop-")):
             assert target.startswith("tpu_operator_torch.")
         else:
             assert target.startswith("tpu_operator.")

@@ -16,6 +16,34 @@ CRD = {
     "TPUDriver": "GPUDriver",
     "tpu.graft.dev/v1alpha1": "gpu.graft.dev/v1alpha1",
 }
+# the CRDs' plurals, singulars and short names (SliceRequest's unchanged)
+CRD_NAMES = {
+    "tpuclusterpolicies": "gpuclusterpolicies",
+    "tpuclusterpolicy": "gpuclusterpolicy",
+    "tcp": "gcp", "tpucp": "gpucp",
+    "tpudrivers": "gpudrivers", "tpudriver": "gpudriver", "tpud": "gpud",
+}
+# the install surface: the values key of the driver CRs, and the chart's
+# files (deployments/tpu-operator -> deployments/gpu-operator)
+VALUES_KEYS = {"tpuDrivers": "gpuDrivers"}
+CHART_DIR = ("deployments/tpu-operator", "deployments/gpu-operator")
+CHART_FILES = {"templates/tpudrivers.yaml": "templates/gpudrivers.yaml",
+               "crds/tpuclusterpolicies.yaml": "crds/gpuclusterpolicies.yaml",
+               "crds/tpudrivers.yaml": "crds/gpudrivers.yaml"}
+# the CLIs ([project.scripts]) and the typed clientset's accessors
+CLIS = {"tpuop-cfg": "gpuop-cfg", "tpuop-must-gather": "gpuop-must-gather",
+        "tpu-operator-maintenance": "gpu-operator-maintenance"}
+CLIENTSET = {"TpuV1": "GpuV1", "TpuV1alpha1": "GpuV1alpha1",
+             "tpu_v1": "gpu_v1", "tpu_v1alpha1": "gpu_v1alpha1",
+             "tpu_drivers": "gpu_drivers", "TPUDriver": "GPUDriver",
+             "TPUDriverStatus": "GPUDriverStatus"}
+# the fleet fold's goodput bar, by generation: the reference's TPU
+# generations as build_cluster's mix maps them (v5e's pool is an H100's,
+# so its bar of 0.12 becomes 0.15; the others keep theirs)
+GOODPUT_GENERATIONS = {"v4": ("a100-sxm",), "v5e": ("h100-sxm",),
+                       "v5p": ("h100-sxm", "gb200")}
+# the SliceRequest CRD's rule message: a GPU request names a fabric
+CRD_TEXT = (("topology grid", "topology fabric"),)
 # spec fields renamed (the key at any depth: each occurs at one place)
 SPEC_FIELDS = {
     "libtpu": "driver",
@@ -267,7 +295,9 @@ BENCH_ENV = {"TPUOP_BENCH_SKIP_SCALE": "GPUOP_BENCH_SKIP_SCALE",
              "TPUOP_BENCH_RESTART_NODES": "GPUOP_BENCH_RESTART_NODES",
              "TPUOP_BENCH_SKIP_RESTART": "GPUOP_BENCH_SKIP_RESTART",
              "TPUOP_BENCH_FAIRNESS_NODES": "GPUOP_BENCH_FAIRNESS_NODES",
-             "TPUOP_BENCH_SKIP_FAIRNESS": "GPUOP_BENCH_SKIP_FAIRNESS"}
+             "TPUOP_BENCH_SKIP_FAIRNESS": "GPUOP_BENCH_SKIP_FAIRNESS",
+             "TPUOP_BENCH_TELEMETRY_NODES": "GPUOP_BENCH_TELEMETRY_NODES",
+             "TPUOP_BENCH_SKIP_TELEMETRY": "GPUOP_BENCH_SKIP_TELEMETRY"}
 # result keys and metric names
 BENCH_KEYS = {"n_tpu_nodes": "n_gpu_nodes", "n_tpu": "n_gpu",
               "baseline_tpu": "baseline_gpu",

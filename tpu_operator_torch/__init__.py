@@ -19,18 +19,26 @@ Package map:
 - ``validator/``  barrier files, the validation components, the workload
                   pod proofs and the node-status exporter
 - ``metrics/``    per-card telemetry (NVML through ``csrc/gpu_telemetry.cc``)
-                  as Prometheus gauges; the operator's own metrics
+                  as Prometheus gauges, the health engine and its digests'
+                  fleet fold; the operator's own metrics
 - ``runtime/``    the client contract, an in-memory fake apiserver, and a
                   small in-cluster client for the pod proofs and agents
-- ``api/``        the GPUClusterPolicy CRD, conditions, labels and
-                  resource names (``nvidia.com/gpu``)
+- ``api/``        the GPUClusterPolicy, GPUDriver and SliceRequest types,
+                  their CRDs with CEL admission, offline validation, the
+                  typed clientset, conditions, labels and resource names
+                  (``nvidia.com/gpu``)
 - ``render/``     the template engine over ``manifests/``
 - ``state/``      the operand states, their apply/readiness skeleton and
                   dependency DAG; node pools
-- ``controllers/`` the GPUClusterPolicy reconciler and state manager
+- ``controllers/`` the GPUClusterPolicy, GPUDriver, upgrade, placement and
+                  telemetry reconcilers and the state manager
+- ``deploy/``     the install bundle from ``values.yaml``, the Helm chart
+                  (``deployments/gpu-operator/``), the OLM bundle, apply
+                  and drift checks
 - ``manifests/``  one directory per operand state; every ``command:``
                   names one of the port's agents
-- ``cli/``        ``python -m tpu_operator_torch.cli.validator``
+- ``cli/``        the validator, node agents, ``gpu-operator``, ``gpuop-cfg``,
+                  ``gpuop-must-gather``, ``gpu-operator-maintenance``
 - ``entry.py``    the burn-in model's forward on one card
 - ``convert.py``  numpy (and JAX-as-numpy) arrays into torch tensors
 

@@ -34,8 +34,9 @@ GPUOP_BENCH_SCALE_NODES sizes it (500), GPUOP_BENCH_FLEET_NODES sizes its
 fleet part (10000) and GPUOP_BENCH_SKIP_FLEET skips that part;
 GPUOP_BENCH_PLACEMENT_FLEET_NODES (10000), GPUOP_BENCH_RESTART_NODES
 (10000) and GPUOP_BENCH_FAIRNESS_NODES (300) size the placement-fleet,
-restart and fairness parts, and GPUOP_BENCH_SKIP_PLACEMENT_FLEET,
-_SKIP_RESTART, _SKIP_FAIRNESS and _SKIP_RESHARD skip them.
+restart and fairness parts, GPUOP_BENCH_TELEMETRY_NODES (800) the
+telemetry part, and GPUOP_BENCH_SKIP_PLACEMENT_FLEET, _SKIP_RESTART,
+_SKIP_FAIRNESS, _SKIP_RESHARD and _SKIP_TELEMETRY skip them.
 """
 
 from __future__ import annotations
@@ -453,6 +454,36 @@ def _controlplane_doc() -> Optional[dict]:
                 lb["lineage_overhead_ratio"], 4)
         except Exception as e:
             doc["lineage"] = {"error": f"{type(e).__name__}: {e}"}
+        # fleet telemetry plane: digest-ingest overhead at 800 nodes,
+        # digest bytes a node flat from 500 to 10,000 nodes, and the
+        # seeded goodput-SLO breach; telemetry_overhead_ratio at top
+        # level is the paired-median fold-on/off ratio
+        if not os.environ.get("GPUOP_BENCH_SKIP_TELEMETRY"):
+            try:
+                from .benchmarks.controlplane import run_telemetry_bench
+
+                tn = int(os.environ.get(
+                    "GPUOP_BENCH_TELEMETRY_NODES", "800"))
+                tb = run_telemetry_bench(tn)
+                doc["telemetry"] = {
+                    "n_gpu_nodes": tb["n_gpu_nodes"],
+                    "publishes_per_round": tb["publishes_per_round"],
+                    "ingest_us_per_publish": round(
+                        tb["ingest_us_per_publish"], 1),
+                    "overhead_ratio": round(
+                        tb["telemetry_overhead_ratio"], 4),
+                    "digest_bytes_per_node": round(
+                        tb["digest_bytes_per_node"], 1),
+                    "digest_bytes_vs_baseline": round(
+                        tb["digest_bytes_vs_baseline"], 4),
+                    "rollup_bytes": tb["rollup_bytes"],
+                    "goodput_slo_breached":
+                        tb["goodput_slo"]["breached"],
+                }
+                doc["telemetry_overhead_ratio"] = round(
+                    tb["telemetry_overhead_ratio"], 4)
+            except Exception as e:
+                doc["telemetry"] = {"error": f"{type(e).__name__}: {e}"}
         # the snapshot-warm restart against a cold relist, wall time to
         # the first placement decision
         if not os.environ.get("GPUOP_BENCH_SKIP_RESTART"):

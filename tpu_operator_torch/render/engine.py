@@ -27,6 +27,8 @@ from __future__ import annotations
 import re
 from typing import Any, Callable, List
 
+from ..runtime.objects import yaml_module
+
 
 class TemplateError(Exception):
     pass
@@ -186,25 +188,9 @@ def _truthy(v: Any) -> bool:
     return True
 
 
-def _yaml():
-    """PyYAML, taught the clients' frozen views (it resolves representers
-    by exact type)."""
-    import yaml
-
-    from ..runtime.objects import FrozenDict, FrozenList
-
-    if FrozenDict not in yaml.SafeDumper.yaml_representers:
-        for dumper in (yaml.SafeDumper, yaml.Dumper):
-            dumper.add_representer(
-                FrozenDict, yaml.representer.SafeRepresenter.represent_dict)
-            dumper.add_representer(
-                FrozenList, yaml.representer.SafeRepresenter.represent_list)
-    return yaml
-
-
 def _to_yaml(v: Any) -> str:
-    return _yaml().safe_dump(v, default_flow_style=False,
-                             sort_keys=False).rstrip("\n")
+    return yaml_module().safe_dump(v, default_flow_style=False,
+                                   sort_keys=False).rstrip("\n")
 
 
 def _indent(n: Any, s: Any) -> str:
@@ -226,7 +212,7 @@ BUILTINS: dict[str, Callable] = {
     "nindent": lambda n, s: "\n" + _indent(n, s),
     "toYaml": _to_yaml,
     "yaml": _to_yaml,  # reference's custom func name (render.go)
-    "fromYaml": lambda s: _yaml().safe_load(s),
+    "fromYaml": lambda s: yaml_module().safe_load(s),
     "deref": lambda v: v,  # pointers don't exist here; identity for parity
     "eq": lambda a, b: a == b,
     "ne": lambda a, b: a != b,

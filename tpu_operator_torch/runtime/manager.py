@@ -1,10 +1,11 @@
 """Controller manager: the mini controller-runtime.
 
 The port's own copy of ``tpu_operator/runtime/manager.py``, less the
-fleet telemetry plane (``/debug/fleet`` and the cache listeners of
-``metrics/fleet.py``, which fold NVLink-domain goodput from
-SliceRequests) and the federation router's snapshot section, which come
-with their slices. Its snapshots hold the cache and the placement index
+federation router's snapshot section, which comes with its slice. At
+``start()`` it attaches the fleet telemetry fold (``metrics/fleet.py``)
+to the informer cache's delta listeners, after the restore and the
+watch wiring, and detaches it at ``stop()``; ``/debug/fleet`` serves the
+fold's snapshot. Its snapshots hold the cache and the placement index
 a registered placement reconciler keeps; a restore replays the
 SliceRequests' persisted requeue attempts into it. ``/debug/quota``
 answers once a reconciler carrying admission is registered, and
@@ -633,6 +634,15 @@ class _HealthHandler(BaseHTTPRequestHandler):
                      "events": events}, sort_keys=True).encode()
                 code = 200
             ctype = "application/json"
+        elif url.path == "/debug/fleet":
+            import json
+
+            from ..metrics.fleet import FLEET_TELEMETRY
+
+            body = json.dumps(FLEET_TELEMETRY.snapshot(),
+                              sort_keys=True).encode()
+            code = 200
+            ctype = "application/json"
         elif url.path == "/debug/quota":
             import json
 
@@ -919,6 +929,16 @@ class Manager:
         unwired, self._unwired = self._unwired, []
         for reconciler, ctrl in unwired:
             reconciler.setup_controller(ctrl, self)
+        cache = self.find_cache()
+        if cache is not None:
+            # fleet telemetry plane: fold node health digests O(delta)
+            # off the informer cache's delta listeners (never a poll)
+            from ..metrics.fleet import FLEET_TELEMETRY
+
+            try:
+                FLEET_TELEMETRY.attach(cache)
+            except Exception:
+                log.exception("fleet telemetry attach failed")
         if (self.snapshot_dir is not None and self.snapshot_interval > 0
                 and self.find_cache() is not None):
             self._snapshot_thread = threading.Thread(
@@ -951,6 +971,12 @@ class Manager:
         if self._snapshot_thread is not None:
             self._snapshot_thread.join(timeout=5.0)
         self.write_snapshot_now()
+        if self.find_cache() is not None:
+            # drop the singleton's cache listeners so a later manager
+            # (tests, restart-in-process) attaches to a live cache only
+            from ..metrics.fleet import FLEET_TELEMETRY
+
+            FLEET_TELEMETRY.detach()
         # signal the client FIRST: a worker sleeping in the HTTP client's
         # 429 throttle-retry wait is interruptible only by client.close(),
         # and ctrl.stop() below joins that worker — closing after the

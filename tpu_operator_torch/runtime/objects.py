@@ -84,6 +84,20 @@ def thaw_obj(obj: Any) -> Any:
     return copy.deepcopy(obj)
 
 
+def yaml_module():
+    """PyYAML, taught the clients' frozen views (it resolves representers
+    by exact type). Imported here, at first use, never at import."""
+    import yaml
+
+    if FrozenDict not in yaml.SafeDumper.yaml_representers:
+        for dumper in (yaml.SafeDumper, yaml.Dumper):
+            dumper.add_representer(
+                FrozenDict, yaml.representer.SafeRepresenter.represent_dict)
+            dumper.add_representer(
+                FrozenList, yaml.representer.SafeRepresenter.represent_list)
+    return yaml
+
+
 def get_nested(obj: Mapping, *path: str, default: Any = None) -> Any:
     """Walk ``path`` through nested mappings, returning ``default`` on miss.
 
