@@ -3021,6 +3021,9 @@ def runtime_phase(torch, card: str, extra_env: dict | None = None,
 # to keep the script's time (each takes 70-90 s of one host CPU at
 # 10,000)
 BENCH_FLEET_NODES = 2000
+# the rider's federation part: 5 cells of this many nodes (2000 by
+# default, cut for the script's time as the fleet parts are)
+BENCH_FEDERATION_NODES_PER_CELL = 400
 BENCH_TIMEOUT_S = 600
 
 
@@ -3049,7 +3052,9 @@ def bench_phase(card: str, n_cards: int) -> dict:
     env = dict(container_base_env(None),
                GPUOP_BENCH_FLEET_NODES=str(BENCH_FLEET_NODES),
                GPUOP_BENCH_PLACEMENT_FLEET_NODES=str(BENCH_FLEET_NODES),
-               GPUOP_BENCH_RESTART_NODES=str(BENCH_FLEET_NODES))
+               GPUOP_BENCH_RESTART_NODES=str(BENCH_FLEET_NODES),
+               GPUOP_BENCH_FEDERATION_NODES_PER_CELL=str(
+                   BENCH_FEDERATION_NODES_PER_CELL))
     t0 = time.perf_counter()
     out = subprocess.run([sys.executable, "-m", "tpu_operator_torch.bench"],
                          env=env, capture_output=True, text=True,
@@ -3101,6 +3106,19 @@ def bench_phase(card: str, n_cards: int) -> dict:
             cp["fairness_jain_index"] <= cp["fairness"]["jain_baseline"]:
         raise RuntimeError(f"a placement part's claim fails: "
                            f"{ {k: cp[k] for k in ('placement', 'migration', 'restart', 'fairness')} }")
+    fed = cp["federation"]
+    log(f"  the rider's federation part: {fed['n_cells']} cells x "
+        f"{fed['nodes_per_cell']} nodes, {fed['n_requests']} requests: "
+        f"federated {fed['federated_placed_chips']} cards placed against "
+        f"flat {fed['flat_placed_chips']} (quality "
+        f"{cp['federation_quality_vs_flat']}), route p99 "
+        f"{cp['federation_route_p99_ms']} ms against the flat index's "
+        f"{fed['flat_p99_ms']} ms ({card})")
+    if (fed["n_cells"], fed["nodes_per_cell"]) != (
+            5, BENCH_FEDERATION_NODES_PER_CELL) or \
+            fed["federated_placed_chips"] <= 0 or \
+            cp["federation_route_p99_ms"] <= 0:
+        raise RuntimeError(f"the federation part: {fed}")
     return {"card": card, "seconds": secs, "line": doc,
             "triad_launches": launches["triad"]}
 
@@ -4105,7 +4123,6 @@ def fleet_phase(torch, card: str, client, mgr, api, base: dict,
         KIND_CLUSTER_POLICY, V1, GPUClusterPolicySpec)
     from tpu_operator_torch.api.crd import cluster_policy_crd
     from tpu_operator_torch.api.validate import admission_errors
-    from tpu_operator_torch.cli.must_gather import FEDERATION_ABSENT
     from tpu_operator_torch.controllers.telemetry_controller import (
         TelemetryReconciler)
     from tpu_operator_torch.metrics import health_engine as he
@@ -4356,7 +4373,7 @@ def fleet_phase(torch, card: str, client, mgr, api, base: dict,
             f"{summary['kinds']}, errors {summary['errors']}; fleet.json "
             f"{'==' if bundle == rolled else '!='} rollup_nodes ({card})")
         if gathered.returncode != 0 or bundle != rolled or \
-                summary["errors"] != [FEDERATION_ABSENT]:
+                summary["errors"] or not summary.get("federation_rendered"):
             raise RuntimeError(f"must-gather: {summary}, {gathered.stderr}")
         shutil.rmtree(MUST_GATHER_DIR, ignore_errors=True)
 
@@ -4446,6 +4463,469 @@ def fleet_phase(torch, card: str, client, mgr, api, base: dict,
             bridge.stop()
         shutil.rmtree(work, ignore_errors=True)
         shutil.rmtree(MUST_GATHER_DIR, ignore_errors=True)
+
+
+# phase M: chaos and federation, after phase H's manager has stopped
+CHAOS_NODES = 32
+CHAOS_SEED = 7
+# scenarios also run as `gpuop-chaos run` processes, their stdout held to
+# the in-process verdict byte for byte
+CHAOS_CLI_SCENARIOS = ("operator-crash", "cell-partition")
+CELLS = ("cell-a", "cell-b")
+# one harness pass advances the federation's virtual clock by the chaos
+# runner's step (chaos/federation.py STEP_DT); the breaker's horizons
+# cost no wall seconds
+FEDERATION_STEP_S = 20.0
+FEDERATION_PASS_LIMIT = 40
+FEDERATION_POLL_S = 0.02
+
+
+def chaos_phase(card: str) -> dict:
+    """M1: all 18 chaos scenarios through the port's ``run_scenario`` in
+    this process, at 32 nodes and seed 7 over the port's ``build_cluster``
+    mix: each verdict ``ok`` with faults injected and no violation; and
+    ``gpuop-chaos run`` as a process for CHAOS_CLI_SCENARIOS, its stdout
+    the in-process verdict byte for byte."""
+    from tpu_operator_torch.chaos.runner import SCENARIOS, run_scenario
+
+    env = container_base_env(None)
+    procs = {s: subprocess.Popen(
+        [sys.executable, "-m", "tpu_operator_torch.cli.chaos", "run",
+         "--scenario", s, "--nodes", str(CHAOS_NODES), "--seed",
+         str(CHAOS_SEED)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for s in CHAOS_CLI_SCENARIOS}
+    t_start = time.perf_counter()
+    verdicts, seconds = {}, {}
+    try:
+        for s in SCENARIOS:
+            t0 = time.perf_counter()
+            v = run_scenario(s, nodes=CHAOS_NODES, seed=CHAOS_SEED)
+            seconds[s] = time.perf_counter() - t0
+            verdicts[s] = v
+            injected = sum(v["faults_injected"].values())
+            log(f"  {s}: ok {v['ok']}, {injected} faults injected "
+                f"{v['faults_injected']}, {len(v['violations'])} "
+                f"violation(s), {v['soak_passes']} soak pass(es), "
+                f"{seconds[s]:.3f} s")
+            if not v["ok"] or v["violations"] or injected == 0:
+                raise RuntimeError(f"chaos scenario {s}: {v['violations']}")
+        in_process_s = time.perf_counter() - t_start
+        cli = {}
+        for s, proc in procs.items():
+            out, err = proc.communicate(timeout=CLI_TIMEOUT_S)
+            want = json.dumps(verdicts[s], indent=2, sort_keys=True) + "\n"
+            cli[s] = {"rc": proc.returncode, "bytes": len(out),
+                      "equal": out == want}
+            log(f"  gpuop-chaos run --scenario {s} --nodes {CHAOS_NODES} "
+                f"--seed {CHAOS_SEED}: rc {proc.returncode}, {len(out)} "
+                f"bytes, {'==' if out == want else '!='} the in-process "
+                f"verdict")
+            if proc.returncode != 0 or out != want:
+                raise RuntimeError(f"gpuop-chaos {s}: {err[-2000:]}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    log(f"  {len(verdicts)} scenarios in {in_process_s:.3f} s in this "
+        f"process; the longest {max(seconds, key=seconds.get)} "
+        f"{max(seconds.values()):.3f} s ({card})")
+    return {"card": card, "scenarios": len(verdicts),
+            "seconds": seconds, "in_process_s": in_process_s,
+            "faults_injected": {s: sum(v["faults_injected"].values())
+                                for s, v in verdicts.items()},
+            "cli": cli}
+
+
+def federation_phase(torch, card: str, node_cluster=None) -> dict:
+    """M2: a cross-cell migration of the card's trainer. Two cells, each
+    its own FakeClient over a GPU node built from the card and a
+    cell-pinned PlacementReconciler; a GlobalRouter under a
+    FederationReconciler on a Manager with a snapshot dir (``/debug/cells``
+    answers); the MultiCellHarness's contact and migration passes on a
+    virtual clock the phase advances. The request is routed to cell A and
+    placed there, phase K's trainer trains on the card against A; A is
+    partitioned from the global plane (its breaker walks to Open, its
+    slice untouched), the router restarts from the Manager's snapshot
+    mid-window, and past the condemnation horizon the harness hops the
+    slice to B by the elastic handshake, where a new trainer restores the
+    acked step, its losses bit-equal to an uninterrupted run's. Then
+    ``gpuop-cfg cells`` and ``gpuop-must-gather`` run as processes against
+    the live manager and a read-only view of the global queue."""
+    from tpu_operator_torch.api import labels as L
+    from tpu_operator_torch.api import slicerequest as sr
+    from tpu_operator_torch.chaos.faults import VirtualClock
+    from tpu_operator_torch.chaos.federation import (ROUTER_TUNING,
+                                                     _PartitionGate)
+    from tpu_operator_torch.controllers.federation_controller import (
+        FederationReconciler)
+    from tpu_operator_torch.controllers.placement_controller import (
+        PlacementReconciler)
+    from tpu_operator_torch.federation.digest import cell_digest
+    from tpu_operator_torch.federation.router import (CELL_HEALTHY,
+                                                      CELL_OPEN,
+                                                      CELL_SUSPECT,
+                                                      GlobalRouter)
+    from tpu_operator_torch.runtime import Request
+    from tpu_operator_torch.runtime.cache import CachedClient
+    from tpu_operator_torch.runtime.client import ApiError, ListOptions
+    from tpu_operator_torch.runtime.fake import FakeClient
+    from tpu_operator_torch.runtime.manager import Manager
+    from tpu_operator_torch.runtime.multicell import Cell, MultiCellHarness
+    from tpu_operator_torch.runtime.objects import (annotations_of,
+                                                    get_nested, thaw_obj)
+
+    t_start = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    ns = TRAINER_NAMESPACE
+    key = f"{ns}/{TRAINER_REQUEST}"
+    cell_a, cell_b = CELLS
+    # virtual time starts at the wall's: the trainer's shim reads an
+    # intent's deadline on its own (wall) clock
+    clock = VirtualClock(start=time.time())
+    t0_virtual = clock()
+    fakes = {c: (node_cluster or gpu_node_cluster)(n_cards) for c in CELLS}
+    gates = {c: _PartitionGate(fakes[c]) for c in CELLS}
+    recons = {c: PlacementReconciler(fakes[c], namespace=ns,
+                                     preemption=False, now=clock, cell=c)
+              for c in CELLS}
+    harness = MultiCellHarness(
+        GlobalRouter(CELLS, now=clock, **ROUTER_TUNING),
+        {c: Cell(c, gates[c], reconciler=recons[c], namespace=ns)
+         for c in CELLS}, now=clock)
+    queue = FakeClient()  # the global queue's apiserver
+    lock = threading.Lock()
+    seen = {c: [] for c in CELLS}   # (t, phase, migration phase) a cell
+    delivered = []
+
+    def on_request(cell):
+        def handler(event):
+            if event.obj["metadata"]["name"] != TRAINER_REQUEST:
+                return
+            status = event.obj.get("status") or {}
+            s = (event.type, status.get("phase"),
+                 (status.get("migration") or {}).get("phase"))
+            with lock:
+                if not seen[cell] or seen[cell][-1][1] != s:
+                    seen[cell].append((time.perf_counter(), s))
+        return handler
+
+    def first_at(cell, want):
+        with lock:
+            return next((t for t, s in seen[cell] if want(s)), None)
+
+    def deliver(cell, cr):  # the router's hand-off to the chosen cell
+        meta = cr["metadata"]
+        body = {"apiVersion": sr.V1ALPHA1, "kind": sr.KIND_SLICE_REQUEST,
+                "metadata": {"name": meta["name"],
+                             "namespace": meta.get("namespace") or ns,
+                             "annotations": dict(
+                                 meta.get("annotations") or {},
+                                 **{L.CELL_PIN: cell})},
+                "spec": thaw_obj(cr["spec"])}
+        harness.cells[cell].client.create(body)
+        with lock:
+            delivered.append((time.perf_counter(), cell))
+
+    snapdir = tempfile.mkdtemp(prefix="gpu-federation-snapshots-")
+
+    def start_manager(router):
+        cached = CachedClient(queue)
+        mgr = Manager(cached, namespace=RECONCILE_NAMESPACE, health_port=0,
+                      snapshot_dir=snapdir, snapshot_interval=3600.0)
+        mgr.add_reconciler(FederationReconciler(cached, router, namespace=ns,
+                                                submit=deliver))
+        mgr.start()
+        return mgr
+
+    def cell_pass():  # each cell's own rider, never behind the gate
+        for c in CELLS:
+            names = {cr["metadata"]["name"] for cr in fakes[c].list(
+                sr.V1ALPHA1, sr.KIND_SLICE_REQUEST,
+                ListOptions(namespace=ns))} | {TRAINER_REQUEST}
+            for name in sorted(names):
+                recons[c].reconcile(Request(name=name, namespace=ns))
+
+    def contact_pass():  # the list through the gate is the probe, as
+        # chaos/federation.py's contact pass makes it
+        router = harness.router
+        for c in router.cells_to_contact():
+            try:
+                gates[c].list("v1", "Node")
+            except ApiError:
+                router.record_failure(c)
+                continue
+            router.record_success(c)
+            harness._seq[c] += 1
+            router.observe_digest(cell_digest(
+                harness.cells[c].fleet_index(), c, harness._seq[c], clock()))
+        router.export_metrics()
+
+    def one_pass(advance: bool = True):
+        contact_pass()
+        cell_pass()
+        harness.migration_pass()
+        if advance:
+            clock.advance(FEDERATION_STEP_S)
+
+    def request_in(cell):
+        return fakes[cell].get_or_none(sr.V1ALPHA1, sr.KIND_SLICE_REQUEST,
+                                       TRAINER_REQUEST, ns)
+
+    def state_of(cell):
+        return harness.router.cells[cell].state
+
+    unwatch = [fakes[c].watch(sr.V1ALPHA1, sr.KIND_SLICE_REQUEST,
+                              on_request(c)) for c in CELLS]
+    bridges = {c: serve_cluster(fakes[c]) for c in CELLS}
+    base = container_base_env(None)
+    work = tempfile.mkdtemp(prefix="gpu-federation-")
+    ckdir = os.path.join(work, "checkpoints")
+    out1, out2 = (os.path.join(work, f"trainer-{i}.json") for i in (1, 2))
+    procs, mgr, api = [], None, None
+    try:
+        # M2.1 an unpinned request for the card's count, routed by the
+        # FederationReconciler on a watch event, placed by cell A's rider
+        contact_pass()
+        mgr = start_manager(harness.router)
+        url = f"http://127.0.0.1:{mgr._http.server_address[1]}"
+        t_submit = time.perf_counter()
+        queue.create(sr.new_slice_request(TRAINER_REQUEST,
+                                          {"chips": n_cards}, namespace=ns))
+        wait_for(lambda: delivered, "the route", 60, FEDERATION_POLL_S)
+        route_ms = (delivered[0][0] - t_submit) * 1e3
+        pin = annotations_of(queue.get(sr.V1ALPHA1, sr.KIND_SLICE_REQUEST,
+                                       TRAINER_REQUEST, ns)).get(L.CELL_PIN)
+        cell_pass()
+        placed = request_in(cell_a)
+        log(f"  M2.1: {key} ({n_cards} card(s)) on the global queue, "
+            f"routed to {delivered[0][1]} by the FederationReconciler "
+            f"{route_ms:.3f} ms after its creation (pin {pin!r}); "
+            f"{cell_a}'s rider placed it on "
+            f"{get_nested(placed, 'status', 'nodes')} "
+            f"({get_nested(placed, 'status', 'phase')})")
+        if delivered[0][1] != cell_a or pin != cell_a or get_nested(
+                placed, "status", "phase") != sr.PHASE_PLACED or \
+                request_in(cell_b) is not None:
+            raise RuntimeError(f"the route: {delivered}, pin {pin!r}")
+        bound_a = list(placed["status"]["nodes"])
+
+        # M2.2 phase K's trainer on the card, against cell A
+        t_first = time.perf_counter()
+        first = start_trainer("first", bridges[cell_a][0],
+                              bridges[cell_a][1], ckdir, out1, base)
+        procs.append(first)
+        wait_for(lambda: (get_nested(request_in(cell_a), "status",
+                                     "progress", "checkpointedStep",
+                                     default=0) or 0)
+                 >= TRAINER_WARM_STEPS or first.poll() is not None,
+                 "the trainer's first checkpoints", TRAINER_TIMEOUT_S)
+        if first.poll() is not None:
+            finish_trainer(first, out1, "first")
+        log(f"  M2.2: the trainer checkpointed step "
+            f"{get_nested(request_in(cell_a), 'status', 'progress', 'checkpointedStep')}"
+            f" in {cell_a} {time.perf_counter() - t_first:.2f} s after its "
+            f"process started ({card})")
+        hold = os.path.join(ckdir, "hold")
+        open(hold, "w").close()  # periodic saves stop first (C8)
+        wait_for(lambda: os.path.exists(hold + ".quiet")
+                 or first.poll() is not None,
+                 "the trainer to stop its periodic saves", TRAINER_TIMEOUT_S)
+
+        # M2.3 partition cell A from the global plane: only the harness's
+        # view fails; A's own rider and the trainer go on
+        gates[cell_a].blocked = True
+        t_part = clock()
+        walk, passes_to_open = [state_of(cell_a)], 0
+        while state_of(cell_a) != CELL_OPEN:
+            one_pass()
+            passes_to_open += 1
+            walk.append(state_of(cell_a))
+            if passes_to_open > FEDERATION_PASS_LIMIT:
+                raise RuntimeError(f"the breaker never opened: {walk}")
+        open_since = harness.router.cells[cell_a].open_since
+        to_open_s = open_since - t_part
+        one_pass()  # into the window
+        # M2.4 the router restarts from the Manager's snapshot mid-window
+        mgr.write_snapshot_now()
+        mgr.stop()
+        router2 = GlobalRouter(CELLS, now=clock, **ROUTER_TUNING)
+        mgr = start_manager(router2)
+        url = f"http://127.0.0.1:{mgr._http.server_address[1]}"
+        restore = dict(mgr.last_restore or {})
+        harness.router = router2
+        recovered = harness.recover_migrations()
+        kept = router2.cells[cell_a]
+        log(f"  M2.3: {cell_a} partitioned from the global plane at "
+            f"virtual {t_part - t0_virtual:.0f} s; breaker {walk} in {passes_to_open} "
+            f"pass(es), Open {to_open_s:.0f} virtual s after the partition; "
+            f"{cell_a}'s slice still {get_nested(request_in(cell_a), 'status', 'phase')}"
+            f" on {get_nested(request_in(cell_a), 'status', 'nodes')}")
+        log(f"  M2.4: the router restarted from the Manager's snapshot: "
+            f"outcome {restore.get('outcome')}, federation_restored "
+            f"{restore.get('federation_restored')}; {cell_a} {kept.state} "
+            f"since virtual {kept.open_since - t0_virtual:.0f} s; "
+            f"{recovered} migration(s) "
+            f"recovered")
+        if walk[:3] != [CELL_HEALTHY, CELL_SUSPECT, CELL_OPEN] or \
+                restore.get("federation_restored") is not True or \
+                kept.state != CELL_OPEN or kept.open_since != open_since or \
+                list(get_nested(request_in(cell_a), "status", "nodes")
+                     or []) != bound_a or first.poll() is not None:
+            raise RuntimeError(f"the partition: {walk}, {restore}, "
+                               f"{kept.to_dict()}")
+        passes_to_condemned = 1
+        while harness.router.condemned_cells() != [cell_a]:
+            one_pass()
+            passes_to_condemned += 1
+            if passes_to_condemned > FEDERATION_PASS_LIMIT:
+                raise RuntimeError("the cell was never condemned")
+        to_condemned_s = clock() - open_since
+
+        # M2.5 the partition heals behind an Open breaker: the harness
+        # hops the condemned cell's slice to B (the clock stands still,
+        # so no probe comes due and no intent deadline passes)
+        gates[cell_a].blocked = False
+        second = None
+        t_heal = time.perf_counter()
+        while harness.migrations or second is None:
+            one_pass(advance=False)
+            if second is None and first_at(
+                    cell_b, lambda s: s[2] == sr.MIG_REBOUND):
+                second = start_trainer("resume", bridges[cell_b][0],
+                                       bridges[cell_b][1], ckdir, out2,
+                                       base)
+                procs.append(second)
+            if first.poll() not in (None, 0) or (
+                    second is not None and second.poll() not in (None, 0)):
+                break
+            if time.perf_counter() - t_heal > TRAINER_TIMEOUT_S:
+                raise RuntimeError(f"the hop did not finish: "
+                                   f"{harness.migrations}")
+            time.sleep(FEDERATION_POLL_S)
+        report1 = finish_trainer(first, out1, "first")
+        report2 = finish_trainer(second, out2, "resumed")
+        one_pass(advance=False)
+        # the partition is over: A's probe comes due and heals its breaker
+        while state_of(cell_a) != CELL_HEALTHY:
+            one_pass()
+            if clock() - open_since > 10 * ROUTER_TUNING["probe_cap_s"]:
+                raise RuntimeError("the healed cell never closed its "
+                                   "breaker")
+
+        # M2.7 the CLIs against the live manager and the global queue
+        api = ClusterReadApi(queue)
+        env = dict(base, KUBECONFIG=api.kubeconfig(os.path.join(
+            work, "kubeconfig")))
+
+        def cli(*argv):
+            t0 = time.perf_counter()
+            out = subprocess.run([sys.executable, "-m", *argv], env=env,
+                                 capture_output=True, text=True,
+                                 timeout=CLI_TIMEOUT_S)
+            return out, time.perf_counter() - t0
+
+        cells_doc = json.loads(http_get(url + "/debug/cells")[1])
+        cfg = "tpu_operator_torch.cli.gpuop_cfg"
+        cells_json, cells_s = cli(cfg, "cells", "--url", url, "-o", "json")
+        cells_text, _ = cli(cfg, "cells", "--url", url)
+        bundle_dir = os.path.join(work, "bundle")
+        gathered, gather_s = cli("tpu_operator_torch.cli.must_gather", "-o",
+                                 bundle_dir)
+        summary = json.load(open(os.path.join(bundle_dir, "summary.json")))
+        bundled = json.load(open(os.path.join(bundle_dir, "federation",
+                                              "cells.json")))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for u in unwatch:
+            u()
+        for _, _, stop in bridges.values():
+            stop()
+        if api is not None:
+            api.stop()
+        if mgr is not None:
+            mgr.stop()
+        shutil.rmtree(work, ignore_errors=True)
+        shutil.rmtree(snapdir, ignore_errors=True)
+
+    # M2.6 what happened, in order
+    with lock:
+        a_seq = [s for _, s in seen[cell_a]]
+        b_seq = [s for _, s in seen[cell_b]]
+    intent_at = first_at(cell_a, lambda s: s[2] == sr.MIG_MIGRATING)
+    ack_at = first_at(cell_a, lambda s: s[2] == sr.MIG_CHECKPOINTED)
+    twin_placed_at = first_at(cell_b, lambda s: s[1] == sr.PHASE_PLACED)
+    rebound_at = first_at(cell_b, lambda s: s[2] == sr.MIG_REBOUND)
+    resumed_at = first_at(cell_b, lambda s: s[2] == sr.MIG_RESUMED)
+    twin = report2
+    acked = report1["acked"]
+    losses, oracle = report2["losses"], report2["oracle"]
+    log(f"  M2.5: {cell_a} condemned {to_condemned_s:.0f} virtual s after "
+        f"it opened ({passes_to_condemned} pass(es)); the partition healed "
+        f"behind the Open breaker; {cell_a}'s request "
+        f"{[s[1:] for s in a_seq]}; {cell_b}'s twin "
+        f"{[s[1:] for s in b_seq]}")
+    log(f"  intent -> ack {ack_at - intent_at:.3f} s; ack -> twin Placed "
+        f"{(twin_placed_at - ack_at) * 1e3:.1f} ms; Rebound -> resumed "
+        f"{resumed_at - rebound_at:.3f} s (a new process to CUDA ready and "
+        f"the DCP restore {report2['restore_s']:.3f} s); acked step "
+        f"{acked}, the first trainer at step {report1['step']} (periodic "
+        f"saves off from step {report1['quiet_step']}), resumed at "
+        f"{report2['restored']} on {report2['bound']} ({card})")
+    log(f"  losses after the resume (float.hex) {losses}; the uninterrupted "
+        f"run's {oracle}")
+    fig_cells = json.loads(cells_json.stdout or "null")
+    log(f"  M2.7: gpuop-cfg cells -o json rc {cells_json.returncode} in "
+        f"{cells_s:.3f} s, {'==' if fig_cells == cells_doc else '!='} "
+        f"/debug/cells; gpuop-must-gather rc {gathered.returncode} in "
+        f"{gather_s:.3f} s: errors {summary['errors']}, federation/cells.json "
+        f"{'==' if bundled == {k: cells_doc[k] for k in ('cells', 'unrouted')} else '!='}"
+        f" /debug/cells' cells and queue:")
+    for line in cells_text.stdout.splitlines():
+        log(f"    {line}")
+    want_b = [s[2] for s in b_seq if s[2]]
+    if [s[2] for s in a_seq if s[2]][:2] != [sr.MIG_MIGRATING,
+                                             sr.MIG_CHECKPOINTED] or \
+            a_seq[-1][0] != "DELETED" or \
+            want_b[-2:] != [sr.MIG_REBOUND, sr.MIG_RESUMED]:
+        raise RuntimeError(f"the hop: {a_seq}, {b_seq}")
+    if acked is None or report2["restored"] != acked or \
+            report2["bound"] != get_nested(
+                fakes[cell_b].get(sr.V1ALPHA1, sr.KIND_SLICE_REQUEST,
+                                  TRAINER_REQUEST, ns), "status", "nodes") \
+            or report1["step"] <= report1["quiet_step"]:
+        raise RuntimeError(f"acked {acked}, restored {report2['restored']}, "
+                           f"bound {report2['bound']}")
+    if len(losses) != TRAINER_RESUMED_TICKS * TRAINER_STEPS_PER_TICK or \
+            min(int(s) for s in losses) != acked + 1 or \
+            losses != oracle or not all(twin["equal"].values()):
+        raise RuntimeError(f"the resumed losses differ from the "
+                           f"uninterrupted run's: {twin['equal']}")
+    if cells_json.returncode != 0 or fig_cells != cells_doc or \
+            cells_text.returncode != 0 or gathered.returncode != 0 or \
+            summary["errors"] or bundled != {
+                k: cells_doc[k] for k in ("cells", "unrouted")}:
+        raise RuntimeError(f"the CLIs: {cells_json.stderr} "
+                           f"{gathered.stderr} {summary}")
+    return {"card": card, "route_ms": route_ms,
+            "passes_to_open": passes_to_open,
+            "partition_to_open_virtual_s": to_open_s,
+            "passes_to_condemned": passes_to_condemned,
+            "open_to_condemned_virtual_s": to_condemned_s,
+            "federation_restored": restore.get("federation_restored"),
+            "intent_to_ack_s": ack_at - intent_at,
+            "ack_to_twin_placed_ms": (twin_placed_at - ack_at) * 1e3,
+            "rebound_to_resumed_s": resumed_at - rebound_at,
+            "restore_s": report2["restore_s"],
+            "acked_step": acked, "restored_step": report2["restored"],
+            "quiet_step": report1["quiet_step"],
+            "first_trainer_step": report1["step"],
+            "resumed_losses": losses,
+            "cells_cli_s": cells_s, "must_gather_s": gather_s,
+            "phase_s": time.perf_counter() - t_start}
 
 
 def main() -> int:
@@ -4833,6 +5313,25 @@ def main() -> int:
     log(json.dumps({"migration": migration}))
     log(json.dumps({"fleet": fleet}))
 
+    # M: chaos and federation, after H's manager has stopped. Host code:
+    # no kernel of this repo lies on it (the trainers are phase K's, the
+    # burn-in's einsum attention), and the counts read after it say so
+    hbm_probe.triad_.launches = 0
+    fa.flash_attention_blocks.launches = 0
+    log("# phase M: chaos and federation (M1: the 18 chaos scenarios and "
+        "gpuop-chaos; M2: the card's trainer carried across cells by the "
+        "global router, a partition and a router restart)")
+    chaos = chaos_phase(card)
+    federation = federation_phase(torch, card)
+    launches_m = {"triad": hbm_probe.triad_.launches,
+                  "flash_attention": fa.flash_attention_blocks.launches}
+    log(f"  kernel launches in phase M: in this process {launches_m}; no "
+        f"validator child runs in M")
+    if any(launches_m.values()):
+        raise RuntimeError("phase M launched a kernel in this process")
+    log(json.dumps({"chaos": chaos, "federation": federation,
+                    "launches_in_process": launches_m}))
+
     # 14. the kernel table
     kernels = [{
         "name": "triad",
@@ -4846,6 +5345,7 @@ def main() -> int:
         "launches_phase_j_child": rollout["triad_launches"],
         "launches_phase_k_child": migration["triad_launches"],
         "launches_phase_k_node_b_child": migration["triad_launches_node_b"],
+        "launches_phase_m_in_process": launches_m["triad"],
         "max_abs_err": triad_err,
         "tolerance": TRIAD_TOLERANCE,
         "ms": kernel_ms,

@@ -1,8 +1,6 @@
 """The port's headline bench (``python -m tpu_operator_torch.bench``)
 against the repository's root ``bench.py``: its control-plane rider has
-the reference rider's keys, less the parts whose benchmarks wait for
-modules not ported (federation), under
-``torch_naming.py``'s ``BENCH_KEYS``, and the same deterministic values at
+the reference rider's keys under ``torch_naming.py``'s ``BENCH_KEYS``, and the same deterministic values at
 small ``n`` (each side's benchmarks shrunk alike: no apiserver latency, a
 60-node fleet over a 50-node baseline, a 2000-item lineage round, a
 200-request placement stream, 3 migrating requests); the placement and
@@ -27,10 +25,9 @@ from tpu_operator_torch.benchmarks import controlplane as cp
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 N_NODES = 20
 FLEET_NODES = 60
-# the reference rider's parts whose benchmarks need modules not ported
-# (federation; ROADMAP.md §A item 6)
-NOT_PORTED = {"federation", "federation_route_p99_ms",
-              "federation_quality_vs_flat"}
+# the reference rider's parts the port's leaves out: none (the
+# federation part's figures are test_torch_federation_bench.py's)
+NOT_PORTED = set()
 
 
 def shrink(monkeypatch, mod, baseline_kw):

@@ -233,11 +233,12 @@ def test_snapshot_round_trip_agrees(tmp_path):
     assert port["summary"] == {"kinds": 2, "objects": 6}
     assert port["resumes"] == 1 and port["stale"].startswith("stale")
     assert port["meta"]["last_restore"]["outcome"] == "restored"
-    # the index and admission sections came with placement (their round
-    # trip is test_torch_snapshot_placement.py's); federation's has not
+    # the index and admission sections came with placement, federation's
+    # with the router (their round trips are test_torch_snapshot_placement.py's
+    # and test_torch_multicell.py's)
     assert hasattr(snap, "restore_index") and hasattr(snap,
                                                       "restore_admission")
-    assert not hasattr(snap, "restore_federation")
+    assert hasattr(snap, "restore_federation")
 
 
 def test_corrupt_snapshot_is_discarded(tmp_path):

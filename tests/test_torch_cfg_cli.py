@@ -305,7 +305,34 @@ def test_top_renders_the_gpu_rollup(tmp_path, capsys):
     assert rc == 1 and "cannot read" in err
 
 
-def test_cells_waits_for_federation(capsys):
-    with pytest.raises(SystemExit):
-        cfg.main(["cells"])
-    assert "invalid choice: 'cells'" in capsys.readouterr().err
+def test_cells_waits_for_federation(capsys, tmp_path):
+    """``cells`` reads a router's report (a file, or a bundle's
+    ``federation/cells.json``) and renders what the reference's renders;
+    an Open breaker exits 2, an unreadable report 1."""
+    from tpu_operator.federation.router import GlobalRouter as RRouter
+    from tpu_operator_torch.federation.router import GlobalRouter
+
+    reports = []
+    for router in (RRouter, GlobalRouter):
+        r = router(["east", "west"], now=lambda: 30.0,
+                   failure_threshold=1)
+        r.record_failure("west")
+        reports.append({"cells": {"east": {"requests": [
+            {"name": "a1", "phase": "Placed", "chips": 8}], "chips": 8}},
+            "unrouted": [{"name": "q1", "phase": "Pending", "chips": 4}],
+            "router": r.report()})
+    assert reports[0] == reports[1]
+    bundle = tmp_path / "bundle" / "federation"
+    bundle.mkdir(parents=True)
+    (bundle / "cells.json").write_text(json.dumps(reports[1]))
+    rrc, rout, _ = run(rcfg.main, ["cells", "-f", str(bundle.parent)],
+                       capsys)
+    rc, out, _ = run(cfg.main, ["cells", "-f", str(bundle.parent)], capsys)
+    assert (rc, out) == (rrc, rout) == (2, rout)
+    assert "open breakers: west" in out and "q1" in out
+    rc, out, _ = run(cfg.main, ["cells", "-f", str(bundle / "cells.json"),
+                                "-o", "json"], capsys)
+    assert rc == 2 and json.loads(out) == reports[1]
+    rc, _, err = run(cfg.main, ["cells", "-f", str(tmp_path / "no.json")],
+                     capsys)
+    assert rc == 1 and "cannot read" in err

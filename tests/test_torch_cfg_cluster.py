@@ -5,8 +5,8 @@ running the port's ``admission_errors`` over the port's CRDs), with
 against the JAX package's on mapped FakeClients.
 
 ``status`` and must-gather's ``fleet/fleet.json`` read the same
-``rollup_nodes`` as ``/debug/fleet``; must-gather's one error is the
-declared absence of the federation section (item 6 of ROADMAP.md §A).
+``rollup_nodes`` as ``/debug/fleet``; must-gather's bundle carries the
+federation section (``federation/cells.json``), as the reference's does.
 """
 
 import json
@@ -173,7 +173,10 @@ def test_must_gather_over_kubeconfig(cluster, tmp_path, capsys):
     capsys.readouterr()
     assert rc == 0
     summary = json.loads((out / "summary.json").read_text())
-    assert summary["errors"] == [mg.FEDERATION_ABSENT]
+    assert summary["errors"] == []
+    assert summary["federation_rendered"] is True
+    assert json.loads((out / "federation" / "cells.json").read_text()) == \
+        {"cells": {}, "unrouted": []}
     assert summary["fleet_digests"] == 2
     fleet = json.loads((out / "fleet" / "fleet.json").read_text())
     assert fleet == rollup_nodes(cluster.list("v1", "Node"))
@@ -190,8 +193,8 @@ def _bundle_files(root):
 
 def test_must_gather_agrees_with_the_reference(tmp_path):
     """Both packages' bundles from mapped FakeClients: the same files
-    under the rule, and the same summary, less the federation section
-    the port declares absent."""
+    under the rule, and the same summary, the federation section
+    included."""
     from tpu_operator.api import labels as RL
     from tpu_operator.cli import must_gather as rmg
     from tpu_operator.runtime import FakeClient as RFake
@@ -211,16 +214,18 @@ def test_must_gather_agrees_with_the_reference(tmp_path):
             lab.HEALTH_DIGEST: digest_annotation(digest("warn", 2))}}})
     rs = rmg.gather(ref, tmp_path / "ref")
     ps = mg.gather(port, tmp_path / "port")
-    assert ps["errors"] == [mg.FEDERATION_ABSENT]
-    assert rs["errors"] == []
+    assert ps["errors"] == rs["errors"] == []
     # the flight recorders are each package's process-wide singletons:
     # their counts are the sections' presence, not a parity figure
-    assert set(ps) == set(rs) - {"federation_rendered"}
+    assert set(ps) == set(rs)
+    assert ps["federation_rendered"] is rs["federation_rendered"] is True
     assert ps["kinds"] == {N.CRD.get(k, k): v for k, v in rs["kinds"].items()}
     assert ps["fleet_digests"] == rs["fleet_digests"] == 1
-    assert _bundle_files(tmp_path / "port") == [
-        f for f in _bundle_files(tmp_path / "ref")
-        if not f.startswith("federation/")]
+    assert _bundle_files(tmp_path / "port") == _bundle_files(
+        tmp_path / "ref")
+    for side in ("ref", "port"):
+        assert json.loads((tmp_path / side / "federation" / "cells.json")
+                          .read_text()) == {"cells": {}, "unrouted": []}
     rroll = json.loads((tmp_path / "ref" / "fleet" / "fleet.json")
                        .read_text())
     roll = json.loads((tmp_path / "port" / "fleet" / "fleet.json")

@@ -9,6 +9,8 @@ import subprocess
 import sys
 import textwrap
 
+import pytest
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 PROBE = textwrap.dedent("""
@@ -61,6 +63,41 @@ PROBE = textwrap.dedent("""
                       "entries": entries, "leaked": leaked,
                       "top_level": top_level}))
 """)
+
+
+# the host modules of the chaos and federation slice: each imports with
+# torch blocked as well
+NO_TORCH = (
+    "tpu_operator_torch.chaos",
+    "tpu_operator_torch.chaos.faults",
+    "tpu_operator_torch.chaos.invariants",
+    "tpu_operator_torch.chaos.runner",
+    "tpu_operator_torch.chaos.federation",
+    "tpu_operator_torch.cli.chaos",
+    "tpu_operator_torch.federation",
+    "tpu_operator_torch.federation.digest",
+    "tpu_operator_torch.federation.router",
+    "tpu_operator_torch.controllers.federation_controller",
+    "tpu_operator_torch.runtime.multicell",
+)
+
+
+@pytest.mark.parametrize("module", NO_TORCH)
+def test_chaos_and_federation_import_no_torch(module):
+    probe = textwrap.dedent(f"""
+        import importlib, sys
+        for name in ("torch", "jax", "jaxlib", "tpu_operator"):
+            sys.modules[name] = None
+        importlib.import_module({module!r})
+        print(sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("torch", "jax", "tpu_operator")
+                     and sys.modules[m] is not None))
+    """)
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
+                         env=dict(os.environ, PYTHONPATH=ROOT),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
 
 
 def test_port_imports_without_jax_or_the_jax_package():
@@ -143,6 +180,8 @@ def test_port_imports_without_jax_or_the_jax_package():
         "tpu_operator_torch.cli.maintenance",
         "tpu_operator_torch.cli.must_gather",
         "tpu_operator_torch.cli.gpuop_cfg",
+        # chaos and federation
+        *NO_TORCH,
     }
     assert expected <= set(res["modules"])
     assert res["leaked"] == []

@@ -107,6 +107,9 @@ CONSTANTS = [
     ("SLICE_INTENT_ACK", "SLICE_INTENT_ACK"),
     ("SLICE_ELASTIC", "SLICE_ELASTIC"),
     ("QUOTA_CLASS", "QUOTA_CLASS"),
+    # the federation plane's cell annotations
+    ("CELL_PIN", "CELL_PIN"),
+    ("CELL_AFFINITY", "CELL_AFFINITY"),
 ]
 # constants outside the label domain, renamed row by row
 # (torch_naming.PLACEMENT)

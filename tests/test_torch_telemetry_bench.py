@@ -61,7 +61,7 @@ def test_rider_part_and_knobs(monkeypatch):
     monkeypatch.setattr(cp, "run_telemetry_bench",
                         lambda n: real(n, **SIZE))
     for part in ("SCALE", "FLEET", "PLACEMENT_FLEET", "RESTART",
-                 "FAIRNESS", "RESHARD"):
+                 "FAIRNESS", "RESHARD", "FEDERATION"):
         monkeypatch.setenv(f"GPUOP_BENCH_SKIP_{part}", "1")
     monkeypatch.delenv("GPUOP_BENCH_SKIP_SCALE")
     monkeypatch.setenv("GPUOP_BENCH_SCALE_NODES", "8")

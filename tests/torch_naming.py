@@ -297,7 +297,11 @@ BENCH_ENV = {"TPUOP_BENCH_SKIP_SCALE": "GPUOP_BENCH_SKIP_SCALE",
              "TPUOP_BENCH_FAIRNESS_NODES": "GPUOP_BENCH_FAIRNESS_NODES",
              "TPUOP_BENCH_SKIP_FAIRNESS": "GPUOP_BENCH_SKIP_FAIRNESS",
              "TPUOP_BENCH_TELEMETRY_NODES": "GPUOP_BENCH_TELEMETRY_NODES",
-             "TPUOP_BENCH_SKIP_TELEMETRY": "GPUOP_BENCH_SKIP_TELEMETRY"}
+             "TPUOP_BENCH_SKIP_TELEMETRY": "GPUOP_BENCH_SKIP_TELEMETRY",
+             "TPUOP_BENCH_FEDERATION_CELLS": "GPUOP_BENCH_FEDERATION_CELLS",
+             "TPUOP_BENCH_FEDERATION_NODES_PER_CELL":
+                 "GPUOP_BENCH_FEDERATION_NODES_PER_CELL",
+             "TPUOP_BENCH_SKIP_FEDERATION": "GPUOP_BENCH_SKIP_FEDERATION"}
 # result keys and metric names
 BENCH_KEYS = {"n_tpu_nodes": "n_gpu_nodes", "n_tpu": "n_gpu",
               "baseline_tpu": "baseline_gpu",
@@ -324,9 +328,28 @@ POOL_MIX = {
         ("nvidia-a100-80gb", "NVIDIA-A100-SXM4-80GB", "nvswitch-8", 8),
 }
 
+# --- chaos and federation ----------------------------------------------------
+# the CLI, the settled state's fleet count, the bench's knobs; the cell
+# annotations keep their suffixes (label_key's rule), as do the fault
+# kinds and scenario names (generic words: chip-loss, chip-degrade)
+CHAOS = {"tpuop-chaos": "gpuop-chaos", "tpu_nodes": "gpu_nodes"}
+# the runner's namespace and policy are OBJECTS' and CRD's rows
+# ("tpu-operator", "tpu-cluster-policy"); the rollout markers name a
+# driver install dir where the reference's name libtpu's
+CHAOS_MARKERS = (("-libtpu-", "-driver-"),)
+# the node a NODE_ADD joins and the index-coherence probes: the
+# reference's v5p host and pin in the port's mix (chaos/runner.py
+# NODE_ADD_LABELS, chaos/invariants.py PROBE_*)
+CHAOS_NODE_ADD = {
+    ("tpu-v5p-slice", "2x2x1", 4):
+        ("nvidia-h100-80gb", "NVIDIA-H100-80GB-HBM3", "nvswitch-4", 4)}
+CHAOS_PROBES = {"tpu-v5p-slice": "NVIDIA-H100-80GB-HBM3",
+                "v5p": "h100-sxm"}
+# the federation bench's knobs are BENCH_ENV's rows
+
 EXACT = {**CRD, **STATES, **OBJECTS, **CONTAINERS, **PATHS, **COMMANDS,
          **ARGS, **ENV, **RESOURCES, **PROFILES, **CARDS, **ALERTS,
-         **RUNTIME, **UPGRADE, **PLACEMENT}
+         **RUNTIME, **UPGRADE, **PLACEMENT, **CHAOS}
 
 
 def label_key(value: str) -> str:

@@ -14,8 +14,9 @@ reference's names onto the port's (ROADMAP.md §C holds the table):
   ``google.com/vtpu`` -> ``nvidia.com/vgpu``;
 - paths ``/run/tpu/*`` -> ``/run/nvidia/*``.
 
-Only what the ported modules read is here. The GKE TPU node labels and
-the federation constants wait for the modules that read them.
+Only what the ported modules read is here. The GKE TPU node labels have
+no counterpart: a GPU node is read by GKE's accelerator label and
+feature discovery's ``gpu.product``/``gpu.topology``.
 """
 
 # --- GKE's node labels (discovery inputs) ----------------------------------
@@ -103,6 +104,19 @@ QUOTA_CLASS = f"{DOMAIN}/quota-class"
 # the placement engine stops offering the node and Placed bindings on it
 # drain. Absent, the node is healthy.
 TELEMETRY_CONDITION = "GPUTelemetryHealthy"
+
+# --- multi-cluster federation plane ----------------------------------------
+# which operator cell a SliceRequest is routed to, stamped by the global
+# router (federation/router.py) once a cell is chosen. A cell's placement
+# reconciler only places requests pinned to its own cell (the placement
+# rider in controllers/placement_controller.py); an unpinned request is a
+# global-queue entry the router still owes a decision.
+CELL_PIN = f"{DOMAIN}/cell"
+# data-locality preference: the cell whose storage holds this request's
+# dataset/checkpoints. The router prefers it while its digest-scored
+# capacity stays competitive, but never routes to it while its breaker is
+# Open — locality is a tiebreaker, not an override.
+CELL_AFFINITY = f"{DOMAIN}/cell-affinity"
 
 # --- Pod Security Admission (namespace labels) ----------------------------
 PSA_LABEL_PREFIX = "pod-security.kubernetes.io/"

@@ -35,8 +35,10 @@ fleet part (10000) and GPUOP_BENCH_SKIP_FLEET skips that part;
 GPUOP_BENCH_PLACEMENT_FLEET_NODES (10000), GPUOP_BENCH_RESTART_NODES
 (10000) and GPUOP_BENCH_FAIRNESS_NODES (300) size the placement-fleet,
 restart and fairness parts, GPUOP_BENCH_TELEMETRY_NODES (800) the
-telemetry part, and GPUOP_BENCH_SKIP_PLACEMENT_FLEET, _SKIP_RESTART,
-_SKIP_FAIRNESS, _SKIP_RESHARD and _SKIP_TELEMETRY skip them.
+telemetry part, GPUOP_BENCH_FEDERATION_CELLS (5) and
+GPUOP_BENCH_FEDERATION_NODES_PER_CELL (2000) the federation part, and
+GPUOP_BENCH_SKIP_PLACEMENT_FLEET, _SKIP_RESTART, _SKIP_FAIRNESS,
+_SKIP_RESHARD, _SKIP_TELEMETRY and _SKIP_FEDERATION skip them.
 """
 
 from __future__ import annotations
@@ -543,6 +545,40 @@ def _controlplane_doc() -> Optional[dict]:
                     fb["saturation_drain_rps"], 1)
             except Exception as e:
                 doc["fairness"] = {"error": f"{type(e).__name__}: {e}"}
+        # multi-cluster federation: the global router's digest-scored
+        # decision against one flat plane over the same fleet;
+        # federation_route_p99_ms and federation_quality_vs_flat at top
+        # level
+        if not os.environ.get("GPUOP_BENCH_SKIP_FEDERATION"):
+            try:
+                from .benchmarks.controlplane import run_federation_bench
+
+                fc = int(os.environ.get(
+                    "GPUOP_BENCH_FEDERATION_CELLS", "5"))
+                fnodes = int(os.environ.get(
+                    "GPUOP_BENCH_FEDERATION_NODES_PER_CELL", "2000"))
+                fd = run_federation_bench(n_cells=fc,
+                                          nodes_per_cell=fnodes)
+                doc["federation"] = {
+                    "n_cells": fd["n_cells"],
+                    "nodes_per_cell": fd["nodes_per_cell"],
+                    "n_requests": fd["n_requests"],
+                    "flat_placed_chips": fd["flat_placed_chips"],
+                    "federated_placed_chips":
+                        fd["federated_placed_chips"],
+                    "unrouted": fd["federated_unrouted"],
+                    "infeasible": fd["federated_infeasible"],
+                    "flat_p99_ms": round(fd["flat_p99_ms"], 3),
+                    "route_vs_flat_x": round(
+                        fd["route_vs_flat_x"], 3),
+                }
+                doc["federation_route_p99_ms"] = round(
+                    fd["federation_route_p99_ms"], 3)
+                doc["federation_quality_vs_flat"] = round(
+                    fd["federation_quality_vs_flat"], 4)
+            except Exception as e:
+                doc["federation"] = {
+                    "error": f"{type(e).__name__}: {e}"}
         return doc
     except Exception as e:  # the rider must never kill the record
         return {"error": f"{type(e).__name__}: {e}"}

@@ -28,14 +28,13 @@ for the functions whose modules are ported. It measures:
   the same-domain resize (``run_migration_bench``,
   ``run_resize_bench``), the snapshot-warm restart against a cold one
   (``run_restart_bench``) and fair-share admission at saturation
-  (``run_fairness_bench``).
+  (``run_fairness_bench``), and the federated plane's global routing
+  against one flat index over the same fleet (``run_federation_bench``).
 
 Used by ``tpu_operator_torch.bench`` (the control-plane rider of the
 port's headline line). Everything runs on the in-memory fake apiserver:
 this benchmark is about the operator's own request/CPU behavior, which
 is identical against the mock and a real apiserver modulo wire latency.
-The federation benchmark of the reference's file waits for its modules
-(ROADMAP.md §A item 6).
 """
 
 from __future__ import annotations
@@ -105,22 +104,6 @@ def build_cluster(n_gpu: int = 500) -> FakeClient:
     for i in range(int(n_gpu * CPU_FRACTION)):
         c.add_node(f"cpu-{i}")
     return c
-
-
-class VirtualClock:
-    """Monotonic virtual time, advanced by the benchmark per pass: the
-    upgrade FSM's and the handshake's deadlines read it, so timeout
-    behavior is part of the deterministic schedule, not the wall clock
-    (the reference's ``chaos.faults.VirtualClock``)."""
-
-    def __init__(self, start: float = 0.0):
-        self.t = float(start)
-
-    def __call__(self) -> float:
-        return self.t
-
-    def advance(self, seconds: float) -> None:
-        self.t += seconds
 
 
 def _counter_sum(sample_name: str) -> float:
@@ -1058,6 +1041,156 @@ def run_placement_fleet_bench(n_gpu: int = 10000, baseline_gpu: int = 500,
     }
 
 
+def run_federation_bench(n_cells: int = 5, nodes_per_cell: int = 2000,
+                         n_requests: int = 2000, lifetime: int = 200,
+                         digest_refresh: int = 32,
+                         seed: int = 0) -> Dict:
+    """The federation tentpole's cost question: what does splitting one
+    flat control plane into N digest-summarized cells do to global
+    decision latency and placement quality?
+
+    The same seeded request stream is driven two ways:
+
+    - **flat** — one ``FleetIndex`` over every node
+      (``n_cells * nodes_per_cell``), per decision a ``best()`` peek;
+      the single-plane anchor.
+    - **federated** — ``n_cells`` separate indexes, each distilled into
+      a schema-stamped cell digest on a refresh cadence
+      (``digest_refresh`` decisions, standing in for the publish
+      interval); per request the :class:`GlobalRouter` scores the held
+      digests (the GLOBAL decision — what's timed), then the chosen
+      cell's own index does fine placement. The router books routed
+      chips between publishes, exactly as in production, so stale
+      digests can't stampede one cell.
+
+    Headline keys: ``federation_route_p99_ms`` (lower is better; the
+    reference's bar is 2x the flat anchor) and
+    ``federation_quality_vs_flat`` (chips placed, federated / flat; the
+    reference's floor 0.95). The request stream pins a ``gpu.product``
+    of :data:`PINNED_PRODUCTS` where the reference pins a TPU
+    accelerator, and prefers two of :data:`PREFERRED_GENERATIONS`, entry
+    by entry (the same draws); a pinned request routes by its product's
+    generation."""
+    import random
+
+    from ..api.slicerequest import SliceRequestSpec
+    from ..federation.digest import cell_digest
+    from ..federation.router import GlobalRouter, request_generation
+    from ..topology.index import FleetIndex
+
+    rng = random.Random(seed)
+    sizes = (4, 4, 8, 8, 16, 32)
+    cell_names = [f"cell-{i}" for i in range(n_cells)]
+    specs = []
+    for _ in range(n_requests):
+        kw = {"chips": rng.choice(sizes)}
+        r = rng.random()
+        if r < 0.15:
+            kw["accelerator"] = rng.choice(PINNED_PRODUCTS)
+        elif r < 0.40:
+            kw["preferred_generations"] = rng.sample(
+                list(PREFERRED_GENERATIONS), 2)
+        locality = (rng.choice(cell_names)
+                    if rng.random() < 0.25 else None)
+        specs.append((SliceRequestSpec(**kw), locality))
+
+    def pct(lat, p):
+        lat = sorted(lat)
+        return lat[min(len(lat) - 1, int(p * len(lat)))] * 1000.0
+
+    # -- flat anchor: one index over the whole fleet -----------------------
+    flat_nodes = build_cluster(n_cells * nodes_per_cell).list("v1", "Node")
+    flat = FleetIndex(flat_nodes)
+    seen = set()
+    for spec, _ in specs:
+        sk = FleetIndex._spec_key(spec)
+        if sk not in seen:
+            seen.add(sk)
+            flat.best(spec)
+    live: Dict[int, tuple] = {}
+    flat_lat = []
+    flat_chips = 0
+    for i, (spec, _) in enumerate(specs):
+        gone = i - lifetime
+        if gone in live:
+            flat.release(node_names=live.pop(gone))
+        t0 = time.perf_counter()
+        best = flat.best(spec)
+        flat_lat.append(time.perf_counter() - t0)
+        if best is not None:
+            flat.book(best.nodes, f"bench/r{i}")
+            live[i] = best.nodes
+            flat_chips += spec.chips_needed()
+
+    # -- federated: N cell indexes under the router ------------------------
+    indexes = {name: FleetIndex(
+        build_cluster(nodes_per_cell).list("v1", "Node"))
+        for name in cell_names}
+    for name in cell_names:
+        seen = set()
+        for spec, _ in specs:
+            sk = FleetIndex._spec_key(spec)
+            if sk not in seen:
+                seen.add(sk)
+                indexes[name].best(spec)
+    router = GlobalRouter(cell_names, now=lambda: 0.0)
+    seqs = {name: 0 for name in cell_names}
+
+    def publish():
+        for name in cell_names:
+            seqs[name] += 1
+            router.observe_digest(cell_digest(
+                indexes[name], name, seqs[name], 0.0))
+
+    publish()
+    fed_live: Dict[int, tuple] = {}
+    route_lat = []
+    fed_chips = 0
+    unrouted = infeasible = 0
+    for i, (spec, locality) in enumerate(specs):
+        if i and i % digest_refresh == 0:
+            publish()
+        gone = i - lifetime
+        if gone in fed_live:
+            cell, nodes = fed_live.pop(gone)
+            indexes[cell].release(node_names=nodes)
+        generation = request_generation(spec.accelerator)
+        t0 = time.perf_counter()
+        decision = router.route(spec.chips_needed(),
+                                generation=generation,
+                                locality=locality)
+        route_lat.append(time.perf_counter() - t0)
+        if decision is None:
+            unrouted += 1
+            continue
+        cell = decision["cell"]
+        best = indexes[cell].best(spec)
+        if best is None:
+            infeasible += 1
+            continue
+        indexes[cell].book(best.nodes, f"bench/r{i}")
+        fed_live[i] = (cell, best.nodes)
+        fed_chips += spec.chips_needed()
+
+    flat_p99 = pct(flat_lat, 0.99)
+    route_p99 = pct(route_lat, 0.99)
+    return {
+        "n_cells": n_cells,
+        "nodes_per_cell": nodes_per_cell,
+        "n_requests": n_requests,
+        "flat_placed_chips": flat_chips,
+        "federated_placed_chips": fed_chips,
+        "federated_unrouted": unrouted,
+        "federated_infeasible": infeasible,
+        "flat_p99_ms": flat_p99,
+        "federation_route_p99_ms": route_p99,
+        "route_vs_flat_x": (route_p99 / flat_p99
+                            if flat_p99 > 0 else 0.0),
+        "federation_quality_vs_flat": (fed_chips / flat_chips
+                                       if flat_chips > 0 else 0.0),
+    }
+
+
 def run_migration_bench(n_gpu: int = 100, n_requests: int = 6,
                         pass_budget: int = 300, seed: int = 0,
                         include_resize: bool = True) -> Dict:
@@ -1088,6 +1221,7 @@ def run_migration_bench(n_gpu: int = 100, n_requests: int = 6,
         SliceRequestSpec,
         new_slice_request,
     )
+    from ..chaos.faults import VirtualClock
     from ..controllers.clusterpolicy_controller import ClusterPolicyReconciler
     from ..controllers.placement_controller import PlacementReconciler
     from ..controllers.upgrade_controller import (
@@ -1260,6 +1394,7 @@ def run_resize_bench(n_gpu: int = 60, n_requests: int = 6,
         SliceRequestSpec,
         new_slice_request,
     )
+    from ..chaos.faults import VirtualClock
     from ..controllers.clusterpolicy_controller import ClusterPolicyReconciler
     from ..controllers.placement_controller import PlacementReconciler
     from ..runtime.objects import get_nested, thaw_obj

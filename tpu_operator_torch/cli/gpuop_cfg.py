@@ -1,8 +1,9 @@
 """gpuop-cfg: configuration + lifecycle tooling (cmd/gpuop-cfg analog,
 plus the Helm-verb slot of deployments/gpu-operator/templates/*).
 
-The port's counterpart of ``tpu_operator/cli/tpuop_cfg.py``, less its
-``cells`` subcommand, which reads the federation router (not ported).
+The port's counterpart of ``tpu_operator/cli/tpuop_cfg.py``; ``cells``
+reads the federation router's ``/debug/cells`` (or a bundle's
+``federation/cells.json``).
 ``status`` and ``top`` read the same ``rollup_nodes`` as ``/debug/fleet``
 (domains keyed by nodepool, else ``{generation}-{gpu.topology}``);
 ``place``'s compact fleet fixture builds GPU nodes as the control-plane
@@ -21,6 +22,7 @@ reads or writes YAML.
     gpuop-cfg dag [-o json]
     gpuop-cfg place --fleet fleet.yaml --chips 8 [--explain] [-o json]
     gpuop-cfg slices [-n NS] [--migrations] [-o json]
+    gpuop-cfg cells [--url http://mgr:8080 | -f cells.json|bundle/] [-o json]
 
 ``validate`` checks a CR offline: YAML wellformedness, kind/apiVersion,
 schema conformance against the generated CRD (unknown fields, wrong
@@ -1053,6 +1055,88 @@ def _top(args) -> int:
     return 2 if condemned else 0
 
 
+def render_cells_report(report: dict) -> str:
+    """The federation cells report as two tables: per-cell breaker rows
+    (state, failure streak, probe ledger, digest age, routed total,
+    pinned load) and the globally-queued requests still owed a cell."""
+    router = report.get("router") or {}
+    breaker = router.get("cells") or {}
+    pinned = report.get("cells") or {}
+    names = sorted(set(breaker) | set(pinned))
+    lines = [f"{'CELL':<14s} {'STATE':<9s} {'STREAK':>6s} "
+             f"{'PROBES':>6s} {'DIGEST-AGE':>10s} {'ROUTED':>6s} "
+             f"{'REQS':>5s} {'CHIPS':>6s}"]
+    for name in names:
+        b = breaker.get(name) or {}
+        p = pinned.get(name) or {}
+        age = b.get("digest_age_s")
+        lines.append(
+            f"{name:<14s} {b.get('state', '-'):<9s} "
+            f"{b.get('failure_streak', 0):>6d} "
+            f"{b.get('probes', 0):>6d} "
+            f"{age if age is not None else '-':>10} "
+            f"{b.get('routed_total', 0):>6d} "
+            f"{len(p.get('requests') or []):>5d} "
+            f"{p.get('chips', 0):>6d}")
+    unrouted = report.get("unrouted") or []
+    if unrouted:
+        lines.append("")
+        lines.append(f"unrouted ({len(unrouted)}):")
+        for row in unrouted:
+            lines.append(f"  {row.get('name', ''):<30s} "
+                         f"{row.get('phase', ''):<14s} "
+                         f"chips={row.get('chips', 0)}")
+    horizon = router.get("condemnation_horizon_s")
+    if horizon is not None:
+        lines.append("")
+        lines.append(f"condemnation horizon: {horizon}s (an Open cell "
+                     f"past it gets its slices migrated out)")
+    return "\n".join(lines)
+
+
+def _cells(args) -> int:
+    """Fetch the federation cells report from the manager's
+    /debug/cells (or a must-gather's federation/cells.json) and render
+    the per-cell breaker table; exit 2 when any cell's breaker is Open
+    so the command scripts as a partition probe."""
+    import pathlib
+    import urllib.request
+
+    if args.file:
+        path = pathlib.Path(args.file)
+        if path.is_dir():
+            # a must-gather bundle: the federation plane lives at a
+            # fixed relative path inside it
+            path = path / "federation" / "cells.json"
+        try:
+            report = json.loads(path.read_text())
+        except (OSError, ValueError) as e:
+            print(f"cannot read cells report from {path}: {e}",
+                  file=sys.stderr)
+            return 1
+    else:
+        url = args.url.rstrip("/") + "/debug/cells"
+        try:
+            with urllib.request.urlopen(url, timeout=args.timeout) as resp:
+                report = json.load(resp)
+        except Exception as e:
+            print(f"cannot fetch {url}: {e}", file=sys.stderr)
+            return 1
+    if not isinstance(report, dict):
+        print("cells report payload is not an object", file=sys.stderr)
+        return 1
+    breaker = (report.get("router") or {}).get("cells") or {}
+    open_cells = sorted(n for n, b in breaker.items()
+                        if (b or {}).get("state") == "Open")
+    if getattr(args, "output", "text") == "json":
+        print(json.dumps(report, indent=2, sort_keys=True))
+    else:
+        print(render_cells_report(report))
+        if open_cells:
+            print("open breakers: " + ", ".join(open_cells))
+    return 2 if open_cells else 0
+
+
 def _dag(args) -> int:
     """Render the operand dependency DAG the scheduler compiles at
     startup: every state with its requires(), the parallel sync waves
@@ -1476,6 +1560,22 @@ def main(argv=None) -> int:
                     default="text")
     tp.add_argument("--timeout", type=float, default=10.0)
 
+    ce = sub.add_parser(
+        "cells", help="federation view from /debug/cells (or a "
+                      "must-gather's federation/cells.json): per-cell "
+                      "breaker state, probe ledger, digest age and "
+                      "pinned load, plus the globally-queued requests; "
+                      "exit 2 when any cell's breaker is Open")
+    ce.add_argument("--url", default="http://127.0.0.1:8080",
+                    help="manager health endpoint base URL")
+    ce.add_argument("-f", "--file", default=None,
+                    help="read a cells.json dump (or a must-gather "
+                         "directory containing federation/cells.json) "
+                         "instead of fetching")
+    ce.add_argument("-o", "--output", choices=("text", "json"),
+                    default="text")
+    ce.add_argument("--timeout", type=float, default=10.0)
+
     dg = sub.add_parser(
         "dag", help="show the operand state dependency DAG the scheduler "
                     "compiles at startup: sync waves, per-state "
@@ -1544,6 +1644,8 @@ def main(argv=None) -> int:
         return _quota(args)
     if args.cmd == "top":
         return _top(args)
+    if args.cmd == "cells":
+        return _cells(args)
     if args.cmd == "dag":
         return _dag(args)
     if args.cmd == "place":

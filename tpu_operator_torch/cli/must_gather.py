@@ -8,10 +8,10 @@ status/conditions, operand DaemonSets + pods, GPU node labels and
 upgrade states, the fleet telemetry rollup (fleet/fleet.json, the same
 ``rollup_nodes`` as ``/debug/fleet``), operator metrics
 (metrics/metrics.prom), the reconcile flight recorder
-(traces/traces.json), and the validator barrier files when run on a
-node. The federation section (``federation/cells.json``) waits for the
-federation router's port; the summary names its absence as its one
-error. PyYAML is imported where the bundle is written.
+(traces/traces.json), the federation picture (federation/cells.json,
+the SliceRequests grouped by cell pin: the ``gpuop-cfg cells -f``
+input), and the validator barrier files when run on a node. PyYAML is
+imported where the bundle is written.
 """
 
 from __future__ import annotations
@@ -69,11 +69,6 @@ def _upgrade_report(nodes_list) -> dict:
         if entry:
             nodes[meta.get("name", "unnamed")] = entry
     return nodes
-
-
-# the summary's entry for the section this build does not carry
-FEDERATION_ABSENT = ("federation: not in this build (the federation "
-                     "router is not ported)")
 
 
 def gather(client, out_dir: pathlib.Path) -> dict:
@@ -210,8 +205,22 @@ def gather(client, out_dir: pathlib.Path) -> dict:
         summary["quota_rendered"] = True
     except Exception as e:
         summary["errors"].append(f"quota: {e}")
-    # the federation picture (the reference's federation/cells.json)
-    summary["errors"].append(FEDERATION_ABSENT)
+    try:
+        # the federation picture (the `gpuop-cfg cells -f` input): the
+        # SliceRequest fleet grouped by cell pin. A bundle has no live
+        # GlobalRouter, so breaker states aren't fabricated — the
+        # cluster-derived half (pins, phases, unrouted queue) still
+        # explains where every request is bound
+        from ..federation.router import cells_report
+
+        d = out_dir / "federation"
+        d.mkdir(parents=True, exist_ok=True)
+        (d / "cells.json").write_text(
+            json.dumps(cells_report(client, "default"),
+                       indent=2, sort_keys=True))
+        summary["federation_rendered"] = True
+    except Exception as e:
+        summary["errors"].append(f"federation: {e}")
     try:
         # the live-resharding picture: one file per request with a
         # non-terminal or byte-accounted migration — the handshake

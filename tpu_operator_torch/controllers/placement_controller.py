@@ -25,9 +25,10 @@ Plugs into the existing planes: reads ride the informer cache, every
 reconcile is traced with a child span per scoring pass, and status
 writes are skipped when nothing changed (the zero-write steady state).
 No wall clocks or RNG touch status: a run driven off a virtual clock is
-byte-identical per seed. The reference's federation rider (a reconciler
-that places only the requests a global router pinned to its cell) comes
-with the federation plane; this reconciler is the single-cluster mode.
+byte-identical per seed. As one cell of a federated fleet
+(``cell=...``) it places only the requests the global router pinned to
+that cell (``federation/router.py``); ``cell=None`` is the
+single-cluster mode.
 """
 
 from __future__ import annotations
@@ -176,10 +177,18 @@ class PlacementReconciler(Reconciler):
                  preemption: Optional[bool] = None,
                  now=time.time, resize_timeout: float = RESIZE_TIMEOUT_S,
                  quota: Optional[QuotaTree] = None,
-                 admission_policy: Optional[str] = None):
+                 admission_policy: Optional[str] = None,
+                 cell: Optional[str] = None):
         self.client = client
         self.namespace = namespace or os.environ.get(
             "OPERATOR_NAMESPACE", "gpu-operator")
+        # federation rider: when this reconciler runs as one cell of a
+        # federated fleet, it only places requests the global router
+        # pinned to it (L.CELL_PIN). An UNPINNED request is a global-
+        # queue entry the router still owes a decision — touching it
+        # here would race the routing decision. None (the default) is
+        # the single-cluster mode: pins are ignored entirely.
+        self.cell = cell
         self.preemption = (_env_preemption() if preemption is None
                            else preemption)
         self.now = now
@@ -375,6 +384,10 @@ class PlacementReconciler(Reconciler):
                                     {"controller": self.name})
             return Result()
         cr = thaw_obj(live)
+        if self.cell is not None \
+                and annotations_of(cr).get(L.CELL_PIN) != self.cell:
+            # not (or not yet) this cell's request — the router owns it
+            return Result()
         spec = SliceRequestSpec.from_obj(cr)
         phase = get_nested(cr, "status", "phase")
 
@@ -524,6 +537,9 @@ class PlacementReconciler(Reconciler):
                 continue
             phase = get_nested(other, "status", "phase")
             if phase == PHASE_PLACED:
+                continue
+            if self.cell is not None and annotations_of(other).get(
+                    L.CELL_PIN) != self.cell:
                 continue
             if phase == PHASE_UNSCHEDULABLE and not (
                     tree is not None

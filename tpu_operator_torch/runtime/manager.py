@@ -1,16 +1,18 @@
 """Controller manager: the mini controller-runtime.
 
-The port's own copy of ``tpu_operator/runtime/manager.py``, less the
-federation router's snapshot section, which comes with its slice. At
+The port's own copy of ``tpu_operator/runtime/manager.py``. At
 ``start()`` it attaches the fleet telemetry fold (``metrics/fleet.py``)
 to the informer cache's delta listeners, after the restore and the
 watch wiring, and detaches it at ``stop()``; ``/debug/fleet`` serves the
 fold's snapshot. Its snapshots hold the cache and the placement index
-a registered placement reconciler keeps; a restore replays the
-SliceRequests' persisted requeue attempts into it. ``/debug/quota``
-answers once a reconciler carrying admission is registered, and
-``/debug/cells`` answers "not configured" until a router is, as the
-reference's do. One fix: a controller's
+a registered placement reconciler keeps, and the global router's
+breaker ledgers when a reconciler carrying one (``FederationReconciler``)
+is registered; a restore replays the SliceRequests' persisted requeue
+attempts and hands the router its ledgers back
+(``federation_restored``). ``/debug/quota`` answers once a reconciler
+carrying admission is registered, and ``/debug/cells`` answers "not
+configured" until a router is, as the reference's do. One fix: a
+controller's
 watches are registered at ``start()``, after the snapshot restore, where
 the reference registers them in ``add_reconciler`` — its cache then
 refuses the seed (an informer already subscribed) and a manager wired as
@@ -871,6 +873,15 @@ class Manager:
                             seeded += hook(payload.get("objects") or [])
                 if seeded:
                     outcome["requeue_state_seeded"] = seeded
+                # federation router state: breaker ledgers + held
+                # digests, so a router restart mid-partition keeps its
+                # Open/backoff decisions instead of re-hammering a
+                # partitioned cell from a cold breaker
+                fed_state = snapshot_mod.restore_federation(snap)
+                fed = self.find_federation()
+                if fed_state is not None and fed is not None:
+                    if fed.adopt_router_state(fed_state):
+                        outcome["federation_restored"] = True
         except Exception as exc:  # a bad restore must not block startup
             log.exception("snapshot restore failed; cold start")
             outcome["outcome"] = "failed"
@@ -901,8 +912,12 @@ class Manager:
             OPERATOR_METRICS.snapshot_writes.labels(
                 outcome="skipped_degraded").inc()
             return None
+        fed = self.find_federation()
         try:
-            snap = snapshot_mod.capture(cache, index=self._snapshot_index())
+            snap = snapshot_mod.capture(
+                cache, index=self._snapshot_index(),
+                federation=fed.router_snapshot() if fed is not None
+                else None)
             path = snapshot_mod.write_snapshot(self.snapshot_dir, snap)
         except Exception:  # pragma: no cover - disk trouble is non-fatal
             log.exception("snapshot write failed")

@@ -1,10 +1,8 @@
 """Durable cache/index snapshots: the crash-safe instant-restart plane.
 
-The port's own copy of ``tpu_operator/runtime/snapshot.py``, less the
-``federation`` section of a capture and its ``restore_federation``: the
-federation router is not ported yet, so these come with the federation
-slice. The layout stays the reference's schema 4, so
-``snapshot_metadata`` still reports whether a file holds one.
+The port's own copy of ``tpu_operator/runtime/snapshot.py``: the
+reference's schema 4, its ``federation`` section (the global router's
+breaker ledgers and held digests) and ``restore_federation`` included.
 
 A cold operator restart at 10k nodes pays full paged relists before its
 first pass. This module makes restart O(changes-since-snapshot) instead:
@@ -114,7 +112,8 @@ def _split_gvk(key: str) -> tuple:
 
 def capture(cached, index=None, now: Optional[Callable[[], float]] = None,
             wall: Optional[float] = None,
-            admission: Optional[dict] = None) -> dict:
+            admission: Optional[dict] = None,
+            federation: Optional[dict] = None) -> dict:
     """Distill the live cache (and optionally the placement index) into
     one JSON-serializable snapshot dict. Objects are thawed copies —
     the snapshot must not alias the live frozen stores once serialized.
@@ -161,6 +160,10 @@ def capture(cached, index=None, now: Optional[Callable[[], float]] = None,
         # the placement controller's admission_snapshot(): deficit
         # clocks + preemption-budget buckets, JSON scalars only
         snap["admission"] = thaw_obj(admission)
+    if federation is not None:
+        # the global router's snapshot(): per-cell breaker ledgers and
+        # held digests (federation/router.py), JSON scalars only
+        snap["federation"] = thaw_obj(federation)
     return snap
 
 
@@ -235,6 +238,17 @@ def restore_admission(snap) -> Optional[dict]:
     carries garbage — a bad section degrades to fresh accounting, never
     a crash."""
     doc = snap.get("admission")
+    if not isinstance(doc, dict):
+        return None
+    return thaw_obj(doc)
+
+
+def restore_federation(snap) -> Optional[dict]:
+    """The snapshot's federation section (the global router's breaker
+    ledgers + held digests) as a plain dict, or None when the snapshot
+    predates it or carries garbage — a bad section degrades to a cold
+    breaker (safe: cells re-prove themselves), never a crash."""
+    doc = snap.get("federation")
     if not isinstance(doc, dict):
         return None
     return thaw_obj(doc)

@@ -119,6 +119,18 @@ class TimelineRecorder:
         return {f"{kind}/{name}": [e.to_dict() for e in events]
                 for (kind, name), events in sorted(items)}
 
+    def save(self) -> tuple:
+        """Everything :meth:`reset` drops, clock and flag included, for
+        :meth:`restore` to put back."""
+        with self._lock:
+            return (self.clock, self.enabled, list(self._objs.items()))
+
+    def restore(self, saved: tuple) -> None:
+        clock, enabled, objs = saved
+        self.reset(clock=clock, enabled=enabled)
+        with self._lock:
+            self._objs.update(objs)
+
     def reset(self, clock: Optional[Callable[[], float]] = None,
               enabled: Optional[bool] = None) -> None:
         """Drop every timeline; optionally swap the clock/enabled flag

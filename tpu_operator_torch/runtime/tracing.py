@@ -341,6 +341,22 @@ class Tracer:
         best = max(cands, key=lambda t: (t.duration_s, -t.seq))
         return best.to_dict()
 
+    def save(self) -> tuple:
+        """Everything :meth:`reset` discards, clock and flag included, for
+        :meth:`restore` to put back."""
+        with self._lock:
+            return (self.clock, self.enabled, list(self._ring),
+                    list(self._failed), list(self._slow), self._seq)
+
+    def restore(self, saved: tuple) -> None:
+        clock, enabled, ring, failed, slow, seq = saved
+        self.reset(clock=clock, enabled=enabled)
+        with self._lock:
+            self._ring.extend(ring)
+            self._failed.extend(failed)
+            self._slow[:] = slow
+            self._seq = seq
+
     def reset(self, clock: Optional[Callable[[], float]] = None,
               enabled: Optional[bool] = None) -> None:
         """Clear every buffer and restart sequence numbering; optionally
