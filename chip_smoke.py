@@ -184,6 +184,24 @@ K (after J, under the same manager, now with ``sliceplacement``). A
    (``torch.equal``) an uninterrupted run's from the same seed; ms of the
    placement, s from intent to ack, ms from ack to rebind, s from rebind
    to resumed, and s from the version change to done against J's;
+N (after M). The operator as it is deployed, over HTTP:
+   ``tests/mock_apiserver.py`` on 127.0.0.1 (its lazy imports of the JAX
+   package answered by the port's modules), a kubeconfig, the card's
+   node and a CPU node; ``install.sh install`` with leader election and
+   two replicas; the rendered operator Deployment's container as two
+   ``gpu-operator`` processes through $KUBECONFIG; a kubelet thread on a
+   second HTTPClient plays the validator pod on the card (the plugin
+   pod through the same apiserver) and marks the DaemonSets. Ready, the
+   Lease held by one replica, ``gpuop-cfg status`` READY and ``diff``
+   clean; 10 s steady with no write but the Lease's and the standby
+   idle; three devicePlugin mutations applied (one through five
+   injected 409s, one after every watch stream dropped); the leader
+   SIGKILLed, the standby leading within the Lease and rewriting no
+   DaemonSet, a mutation after it applied; ``install.sh uninstall
+   --purge-crds`` leaving no CR, DaemonSet or CRD. Then
+   ``python -m tpu_operator_torch.scripts.hbm_sweep`` (every point
+   correct) and ``end-to-end.sh`` (nine stages, the workload proof on
+   the card) as processes;
 14. print the kernel table as one JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``; on any failure the
@@ -2383,7 +2401,8 @@ def validator_stand_ins(pod: dict, valdir: str) -> dict:
         f"(hostPath {mounts['validations']['hostPath']['path']}) -> "
         f"GPU_VALIDATION_DIR={valdir}; host-root (hostPath "
         f"{mounts['host-root']['hostPath']['path']} at /host) -> "
-        f"HOST_ROOT=/; the service account -> the stub apiserver")
+        f"HOST_ROOT=/; the service account -> the apiserver at "
+        f"SMOKE_APISERVER")
     for ctr in pod["initContainers"] + pod["containers"]:
         for m in ctr.get("volumeMounts") or []:
             if m["name"] == "validations" and \
@@ -4928,6 +4947,681 @@ def federation_phase(torch, card: str, node_cluster=None) -> dict:
             "phase_s": time.perf_counter() - t_start}
 
 
+
+# phase N: the operator as it is deployed. tests/mock_apiserver.py serves
+# a real HTTP API on 127.0.0.1 (loaded by path: it imports only the
+# standard library at its top, and the few modules it imports while it
+# answers a request are served by the port's namesakes, never the JAX
+# package's); install.sh installs the bundle with leader election and two
+# replicas; the rendered operator Deployment's container runs as two
+# gpu-operator processes that find the apiserver through $KUBECONFIG; a
+# kubelet thread on its own HTTPClient plays the validator pod on the card
+# and marks the DaemonSets. No FakeClient, no --fake-cluster.
+MOCK_APISERVER = os.path.join("tests", "mock_apiserver.py")
+MOCK_APISERVER_IMPORTS = {
+    "tpu_operator.api.validate": "tpu_operator_torch.api.validate",
+    "tpu_operator.runtime.client": "tpu_operator_torch.runtime.client",
+    "tpu_operator.runtime.objects": "tpu_operator_torch.runtime.objects",
+}
+INSTALL_SH = os.path.join("tpu_operator_torch", "scripts", "install.sh")
+SHELL_E2E = os.path.join("tpu_operator_torch", "scripts", "end-to-end.sh")
+SHELL_STAGES = ["install-manifests", "values-pipeline", "lifecycle-hooks",
+                "validate-clusterpolicy", "verify-operator",
+                "restart-operator", "validator-components", "workload-proof",
+                "isolated-plane"]
+DEPLOYED_REPLICAS = 2
+DEPLOYED_STEADY_S = 10.0
+KUBELET_TICK_S = 0.5
+# a policy left unreconciled this long at a start (ROADMAP C5), or a
+# mutation unseen this long (C12), is taken as dropped, and the policy's
+# spec is changed again, as an admin would re-apply it
+MUTATION_WAIT_S = 10.0
+MUTATION_NUDGES = 3
+INJECTED_CONFLICTS = 5
+FAILOVER_TIMEOUT_S = 60
+SETTLE_S = 3.0
+DEPLOYED_TIMEOUT_S = 600
+
+
+def load_mock_apiserver():
+    """``tests/mock_apiserver.py`` as a module. Its handlers import the
+    JAX package's admission check, merge patch and label match where a
+    request needs them; here each of those imports is answered by the
+    port's module of the same path, and any other import of the JAX
+    package fails."""
+    import builtins
+    import importlib
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("smoke_mock_apiserver",
+                                                  MOCK_APISERVER)
+    mod = importlib.util.module_from_spec(spec)
+    real = builtins.__import__
+
+    def port_import(name, globals=None, locals=None, fromlist=(), level=0):
+        if name in MOCK_APISERVER_IMPORTS and fromlist:
+            return importlib.import_module(MOCK_APISERVER_IMPORTS[name])
+        if name.split(".")[0] == "tpu_operator":
+            raise ImportError(f"the mock apiserver asked for {name}")
+        return real(name, globals, locals, fromlist, level)
+
+    mod.__builtins__ = dict(vars(builtins), __import__=port_import)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+class ServerLog:
+    """Every answer the mock apiserver gives: (method, path, code, the
+    policy's status.state where a write answered it)."""
+
+    def __init__(self, srv):
+        self.entries = []
+        self._lock = threading.Lock()
+        handler = srv.http.RequestHandlerClass  # this server's own class
+        send = handler._send
+
+        def _send(h, code, doc):
+            state = None
+            if h.command in ("PUT", "PATCH") and code == 200 and \
+                    "gpuclusterpolicies/" in h.path:
+                state = (doc.get("status") or {}).get("state")
+            with self._lock:
+                self.entries.append((h.command, h.path.split("?")[0], code,
+                                     state))
+            return send(h, code, doc)
+
+        handler._send = _send
+
+    def take(self) -> list:
+        with self._lock:
+            entries, self.entries = self.entries, []
+        return entries
+
+    @staticmethod
+    def writes(entries) -> dict:
+        """{"METHOD path": n} of the writes among ``entries``."""
+        out = {}
+        for method, path, _, _ in entries:
+            if method in ("POST", "PUT", "PATCH", "DELETE"):
+                out[f"{method} {path}"] = out.get(f"{method} {path}", 0) + 1
+        return out
+
+
+def node_object(name: str, labels: dict | None = None,
+                allocatable: dict | None = None) -> dict:
+    """A Node as a joining VM registers it (the FakeClient's add_node)."""
+    return {"apiVersion": "v1", "kind": "Node",
+            "metadata": {"name": name, "labels": dict(labels or {})},
+            "spec": {},
+            "status": {"allocatable": dict(allocatable or {}),
+                       "capacity": dict(allocatable or {}),
+                       "nodeInfo": {"containerRuntimeVersion":
+                                    "containerd://1.7.0"},
+                       "conditions": [{"type": "Ready", "status": "True"}]}}
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def verb_counts(text: str) -> dict:
+    """{"verb kind source": n} of the client verb histogram's counts."""
+    out = {}
+    for (name, labels), v in prom_series(text).items():
+        if name == "gpu_operator_client_verb_duration_seconds_count":
+            d = dict(labels)
+            out[f"{d['verb']} {d['kind']} {d['source']}"] = v
+    return out
+
+
+def delta(after: dict, before: dict) -> dict:
+    return {k: v - before.get(k, 0) for k, v in after.items()
+            if v != before.get(k, 0)}
+
+
+class PodPlayer:
+    """The kubelet's half for standalone pods: a pod with no owner and no
+    phase (plugin-validation's workload pod) runs its first container's
+    command as a process, and its exit code is written as its phase."""
+
+    def __init__(self, client, env: dict, runs: list):
+        self.client, self.play = client, play_pod(env, runs)
+        self.seen = set()
+        self.stop = threading.Event()
+        self.thread = threading.Thread(target=self._loop, daemon=True,
+                                       name="smoke-pod-player")
+        self.thread.start()
+
+    def _loop(self):
+        from tpu_operator_torch.runtime.objects import thaw_obj
+
+        while not self.stop.wait(0.2):
+            try:
+                pods = self.client.list("v1", "Pod")
+            except Exception:  # the apiserver went away at the end
+                continue
+            for pod in pods:
+                meta = pod["metadata"]
+                key = (meta.get("namespace"), meta["name"], meta.get("uid"))
+                if meta.get("ownerReferences") or key in self.seen or \
+                        (pod.get("status") or {}).get("phase"):
+                    continue
+                self.seen.add(key)
+                pod = thaw_obj(pod)
+                pod.setdefault("status", {})["phase"] = self.play(pod)
+                try:
+                    self.client.update_status(pod)
+                except Exception as e:  # deleted meanwhile
+                    log(f"  pod player: {meta['name']}: {e}")
+
+
+def start_operator(ctr: dict, scripts: dict, env: dict, port: int,
+                   logfile: str):
+    """One replica of the rendered operator container as a process: its
+    command resolved through [project.scripts], the rendered health port
+    replaced by ``port`` (each pod has its own network namespace; here
+    the replicas share one)."""
+    cmd = list(ctr["command"])
+    cmd[cmd.index("--health-port") + 1] = str(port)
+    target = scripts[cmd[0]]
+    if not target.startswith("tpu_operator_torch."):
+        raise RuntimeError(f"{cmd[0]} names no port entry point")
+    out = open(logfile, "w")
+    proc = subprocess.Popen([sys.executable, "-c", SCRIPT_LAUNCHER, target,
+                             *cmd], env=env, stdout=out,
+                            stderr=subprocess.STDOUT)
+    proc.logfile, proc.url, proc.cmd = logfile, f"http://127.0.0.1:{port}", cmd
+    out.close()
+    return proc
+
+
+def leader_identity(proc) -> str | None:
+    with open(proc.logfile) as f:
+        found = re.findall(r"(\S+) became leader", f.read())
+    return found[-1] if found else None
+
+
+def scrape(proc) -> str:
+    code, body = http_get(proc.url + "/metrics")
+    if code != 200:
+        raise RuntimeError(f"{proc.url}/metrics answered {code}")
+    return body.decode()
+
+
+def policy_reconciles(proc) -> float:
+    return histogram_count(scrape(proc),
+                           "gpu_operator_reconcile_duration_seconds",
+                           "gpuclusterpolicy")
+
+
+def deployed_phase(torch, card: str, extra_env: dict | None = None,
+                   matmul_size: int = MATMUL_SIZE) -> dict:
+    """Phase N0-N5: the operator as it is deployed. ``extra_env`` and
+    ``matmul_size`` serve a rehearsal on the CPU only."""
+    from tpu_operator_torch.api import labels as L
+    from tpu_operator_torch.api.clusterpolicy import KIND_CLUSTER_POLICY, V1
+    from tpu_operator_torch.featurediscovery import FeatureDiscovery
+    from tpu_operator_torch.runtime.client import ListOptions
+    from tpu_operator_torch.runtime.fake import simulate_kubelet
+    from tpu_operator_torch.runtime.kubeclient import HTTPClient, KubeConfig
+    from tpu_operator_torch.runtime.objects import get_nested, thaw_obj
+
+    t_phase = time.perf_counter()
+    n_cards = torch.cuda.device_count() if extra_env is None else 1
+    threshold = float(os.environ.get("NVLINK_THRESHOLD", "0.8"))
+    scripts = project_scripts()
+    base = container_base_env(extra_env)
+    figures = {"card": card}
+    work = tempfile.mkdtemp(prefix="gpu-deployed-")
+    valdir = os.path.join(work, "validations")
+    os.makedirs(valdir)
+
+    # N0. the apiserver, a kubeconfig, the card's node and a CPU node
+    api_mod = load_mock_apiserver()
+    srv = api_mod.MockApiServer().start()
+    server_log = ServerLog(srv)
+    cfg = KubeConfig(server=srv.url, token="smoke", namespace=
+                     RECONCILE_NAMESPACE)
+    ops, kubelet_client = HTTPClient(cfg), HTTPClient(cfg)
+    kubeconfig = os.path.join(work, "kubeconfig")
+    with open(kubeconfig, "w") as f:
+        json.dump({"apiVersion": "v1", "kind": "Config",
+                   "current-context": "smoke",
+                   "contexts": [{"name": "smoke", "context": {
+                       "cluster": "smoke", "user": "smoke",
+                       "namespace": RECONCILE_NAMESPACE}}],
+                   "clusters": [{"name": "smoke",
+                                 "cluster": {"server": srv.url}}],
+                   "users": [{"name": "smoke",
+                              "user": {"token": "smoke"}}]}, f)
+    ops.create(node_object(RECONCILE_NODE, {
+        L.GKE_ACCELERATOR: "nvidia-h100-80gb"},
+        {L.GPU_RESOURCE: str(n_cards)}))
+    ops.create(node_object("cpu-node"))
+    FeatureDiscovery(ops, RECONCILE_NODE).apply_once()
+    values = os.path.join(work, "values.yaml")
+    with open(values, "w") as f:  # JSON is YAML
+        json.dump({"operator": {"leaderElect": True,
+                                "replicas": DEPLOYED_REPLICAS},
+                   "clusterPolicy": {"spec": {"validator": {
+                       "nvlinkBandwidthThreshold": threshold,
+                       "matmulSize": matmul_size}}}}, f)
+    cli_env = {**base, "KUBECONFIG": kubeconfig}
+    log(f"  N0: mock apiserver {srv.url} (tests/mock_apiserver.py), "
+        f"kubeconfig {kubeconfig}; nodes {RECONCILE_NODE} (labels "
+        f"{ops.get('v1', 'Node', RECONCILE_NODE)['metadata']['labels']}) "
+        f"and cpu-node")
+
+    procs = []
+    pod_runs = []
+    player = PodPlayer(kubelet_client, base, pod_runs)
+    kubelet_out = {}
+    kubelet_stop = threading.Event()
+
+    def retrying(fn, *args):
+        """``fn(*args)``, again after a refused or reset connection: the
+        apiserver's accept queue overflows while every watch reconnects."""
+        for attempt in range(10):
+            try:
+                return fn(*args)
+            except OSError:
+                if attempt == 9:
+                    raise
+                time.sleep(0.2)
+
+    def policy():
+        return retrying(ops.get_or_none, V1, KIND_CLUSTER_POLICY,
+                        "gpu-cluster-policy")
+
+    def policy_state():
+        return ((policy() or {}).get("status") or {}).get("state")
+
+    def lease_holder():
+        lease = retrying(ops.get_or_none, "coordination.k8s.io/v1", "Lease",
+                         "gpu-operator", RECONCILE_NAMESPACE)
+        return ((lease or {}).get("spec") or {}).get("holderIdentity")
+
+    def cli(*argv, script=None):
+        t0 = time.perf_counter()
+        cmd = (["bash", script] if script else
+               [sys.executable, "-m", "tpu_operator_torch.cli.gpuop_cfg"])
+        out = subprocess.run([*cmd, *argv], env=cli_env, capture_output=True,
+                             text=True, timeout=CLI_TIMEOUT_S)
+        return out, time.perf_counter() - t0
+
+    def daemonset_rvs():
+        return {d["metadata"]["name"]: d["metadata"]["resourceVersion"]
+                for d in retrying(ops.list, "apps/v1", "DaemonSet",
+                                  ListOptions(namespace=RECONCILE_NAMESPACE))}
+
+    def settled(what: str) -> dict:
+        """Ready, with no DaemonSet changing for SETTLE_S."""
+        rvs, since = None, time.monotonic()
+        deadline = time.monotonic() + DEPLOYED_TIMEOUT_S
+        while time.monotonic() < deadline:
+            now = daemonset_rvs()
+            if now != rvs:
+                rvs, since = now, time.monotonic()
+            elif time.monotonic() - since >= SETTLE_S and \
+                    policy_state() == "ready":
+                return rvs
+            time.sleep(0.1)
+        raise RuntimeError(f"not settled {what}")
+
+    def plugin_env_names():
+        ds = retrying(ops.get_or_none, "apps/v1", "DaemonSet",
+                      "gpu-device-plugin-daemonset", RECONCILE_NAMESPACE)
+        return {e.get("name") for e in get_nested(
+            ds or {}, "spec", "template", "spec", "containers",
+            default=[{}])[0].get("env") or []}
+
+    def update_policy(change):
+        from tpu_operator_torch.runtime.client import ConflictError
+
+        for _ in range(50):
+            cr = thaw_obj(policy())
+            change(cr)
+            try:
+                retrying(ops.update, cr)
+                return
+            except ConflictError:
+                time.sleep(0.1)
+        raise RuntimeError("the policy update never landed")
+
+    def until(pred, what: str, respec) -> int:
+        """Wait for ``pred``; each time it stays false MUTATION_WAIT_S,
+        change the policy's spec with ``respec(cr, n)``, as an admin
+        would re-apply a change: the controller watches the policy's
+        generation, so nothing less reaches it. The re-applies."""
+        for n in range(MUTATION_NUDGES + 1):
+            if n:
+                log(f"  {what}: not in {MUTATION_WAIT_S} s (the controller "
+                    f"read the policy before its cache had it: ROADMAP C5 "
+                    f"at a start, C12 after a change); re-applied ({n})")
+                update_policy(lambda cr: respec(cr, n))
+            deadline = time.monotonic() + MUTATION_WAIT_S
+            while time.monotonic() < deadline:
+                if pred():
+                    return n
+                time.sleep(0.01)
+        raise RuntimeError(f"{what}: never, after {MUTATION_NUDGES} "
+                           f"re-applies")
+
+    def plugin_env(name: str):
+        """A spec change: the device plugin's env is one entry ``name``,
+        its value ``n`` (0 first, then each re-apply's count)."""
+        def change(cr, n=0):
+            cr["spec"].setdefault("devicePlugin", {})["env"] = [
+                {"name": name, "value": str(n)}]
+        return change
+
+    def mutate(name: str, arm=None) -> dict:
+        """Add a devicePlugin env entry; ms until the DaemonSet carries
+        it, and the re-applies it took."""
+        t0 = time.perf_counter()
+        update_policy(plugin_env(name))
+        if arm:
+            arm()
+        reapplied = until(lambda: name in plugin_env_names(), name,
+                          plugin_env(name))
+        return {"ms": (time.perf_counter() - t0) * 1e3,
+                "reapplied": reapplied}
+
+    def kubelet():
+        try:
+            ds = wait_for(lambda: retrying(
+                kubelet_client.get_or_none, "apps/v1", "DaemonSet",
+                "gpu-operator-validator", RECONCILE_NAMESPACE),
+                "the validator DaemonSet", DEPLOYED_TIMEOUT_S)
+            pod = ds["spec"]["template"]["spec"]
+            stand_ins = validator_stand_ins(pod, valdir)
+            c0 = time.perf_counter()
+            kubelet_out["containers"] = play_init_containers(
+                pod, base, stand_ins, srv.url, scripts, card)
+            kubelet_out["chain_s"] = time.perf_counter() - c0
+            kubelet_out["waits"] = operand_waits(
+                kubelet_client, base, stand_ins, scripts,
+                "every operand's wait after the chain")
+            if any(rc != 0 for rc, _ in kubelet_out["waits"].values()):
+                raise RuntimeError(f"a wait failed after the chain: "
+                                   f"{kubelet_out['waits']}")
+            simulate_kubelet(kubelet_client, ready=True)
+            kubelet_out["marked_at"] = time.perf_counter()
+            while not kubelet_stop.wait(KUBELET_TICK_S):
+                try:
+                    simulate_kubelet(kubelet_client, ready=True)
+                except Exception as e:  # a write race, or the end
+                    kubelet_out["tick_error"] = repr(e)
+        except BaseException as e:  # re-raised by the phase below
+            kubelet_out["error"] = e
+
+    th = threading.Thread(target=kubelet, name="smoke-kubelet", daemon=True)
+    try:
+        # N1. install, two replicas, ready
+        t_install = time.perf_counter()
+        out, install_s = cli("install", "-f", values, script=INSTALL_SH)
+        if out.returncode != 0:
+            raise RuntimeError(f"install.sh install: {out.stderr}")
+        dep = ops.get("apps/v1", "Deployment", "gpu-operator",
+                      RECONCILE_NAMESPACE)
+        ctr = dep["spec"]["template"]["spec"]["containers"][0]
+        replicas = dep["spec"]["replicas"]
+        log(f"  N1: install.sh install -f {values} in {install_s:.3f} s: "
+            f"Deployment gpu-operator, {replicas} replicas, "
+            f"{' '.join(ctr['command'])}")
+        if replicas != DEPLOYED_REPLICAS or \
+                "--leader-elect" not in ctr["command"]:
+            raise RuntimeError(f"the rendered Deployment: {dep['spec']}")
+        installed_spec = thaw_obj(policy())["spec"]
+        th.start()
+        op_env = {**base, **rendered_env(ctr, RECONCILE_NODE,
+                                         RECONCILE_NAMESPACE),
+                  "KUBECONFIG": kubeconfig}
+        for i in range(replicas):
+            procs.append(start_operator(
+                ctr, scripts, op_env, free_port(),
+                os.path.join(work, f"gpu-operator-{i}.log")))
+        wait_for(lambda: lease_holder() or any(
+            p.poll() is not None for p in procs), "the Lease",
+            DEPLOYED_TIMEOUT_S, 0.05)
+        start_reapplied = until(lambda: policy_state() is not None,
+                                "the leader's first reconcile",
+                                plugin_env("SMOKE_REAPPLIED"))
+        wait_for(lambda: policy_state() == "ready" or "error" in kubelet_out
+                 or any(p.poll() is not None for p in procs),
+                 "the policy to be ready", DEPLOYED_TIMEOUT_S, 0.02)
+        t_ready = time.perf_counter()
+        if "error" in kubelet_out:
+            raise kubelet_out["error"]
+        dead = [p.cmd for p in procs if p.poll() is not None]
+        if dead or "marked_at" not in kubelet_out:
+            raise RuntimeError(f"operators exited {dead}, or ready before "
+                               f"the kubelet marked the DaemonSets")
+        ready_s = t_ready - t_install
+        after_mark_ms = (t_ready - kubelet_out["marked_at"]) * 1e3
+        identities = {leader_identity(p): p for p in procs}
+        lease = lease_holder()
+        leader = identities.get(lease)
+        if leader is None or None not in identities:
+            raise RuntimeError(f"the Lease's holder {lease} is not one "
+                               f"replica alone: {list(identities)}")
+        standby = next(p for p in procs if p is not leader)
+        at_ready = server_log.take()
+        start_conflicts = [(m, p) for m, p, code, _ in at_ready
+                           if m == "POST" and code == 409]
+        leader_reconciles = policy_reconciles(leader)
+        hbm = kubelet_out["containers"]["hbm-validation"]
+        if start_reapplied:  # back to the installed spec, for diff
+            update_policy(lambda cr: cr.update(spec=installed_spec))
+            settled("after the installed spec came back")
+        status, status_s = cli("status")
+        diff, diff_s = cli("diff", "--values", values)
+        log(f"  N1: ready {ready_s:.3f} s after install.sh started, the "
+            f"chain {kubelet_out['chain_s']:.3f} s of it; "
+            f"{after_mark_ms:.1f} ms after the kubelet's marks; leader "
+            f"{lease} ({leader.url}), {leader_reconciles:.0f} policy "
+            f"reconciles (C6); creates answered 409 at start "
+            f"{start_conflicts}, the policy re-applied {start_reapplied} "
+            f"times (C5); hbm-validation's child launched the triad "
+            f"{hbm['triad_launches']} times; gpuop-cfg status rc "
+            f"{status.returncode} ({status_s:.3f} s), diff rc "
+            f"{diff.returncode} ({diff_s:.3f} s); the plugin pod "
+            f"{pod_runs} ({card})")
+        if status.returncode != 0 or status.stdout.strip().splitlines()[
+                -1] != "READY" or diff.returncode != 0:
+            raise RuntimeError(f"status/diff: {status.stdout} "
+                               f"{diff.stdout} {diff.stderr}")
+        if hbm["triad_launches"] != TRIAD_LAUNCHES_PER_HBM_PROOF:
+            raise RuntimeError(f"hbm-validation's child launched the "
+                               f"triad {hbm['triad_launches']} times")
+
+        # N2. steady: the Lease's writes alone; the standby idle
+        rvs = settled("before the steady window")
+        server_log.take()
+        verbs0 = verb_counts(scrape(leader))
+        time.sleep(DEPLOYED_STEADY_S)
+        verbs = delta(verb_counts(scrape(leader)), verbs0)
+        window = server_log.take()
+        writes = ServerLog.writes(window)
+        lease_path = (f"/apis/coordination.k8s.io/v1/namespaces/"
+                      f"{RECONCILE_NAMESPACE}/leases/gpu-operator")
+        ours = {k: n for k, n in writes.items() if k != f"PUT {lease_path}"}
+        client_writes = {k: n for k, n in verbs.items()
+                         if k.split()[0] in WRITE_VERBS
+                         and k.split()[1] != "Lease"}
+        standby_reconciles = policy_reconciles(standby)
+        reads = {src: sum(n for k, n in verbs.items()
+                          if k.endswith(" " + src)
+                          and k.split()[0] in ("get", "list"))
+                 for src in ("cache", "api")}
+        log(f"  N2: {DEPLOYED_STEADY_S} s steady: the apiserver took "
+            f"{writes} ({len(window)} requests); the leader's verbs "
+            f"{verbs} (reads by source {reads}); the standby's policy "
+            f"reconciles {standby_reconciles:.0f}")
+        if ours or client_writes or standby_reconciles or \
+                daemonset_rvs() != rvs:
+            raise RuntimeError(f"the steady window wrote {ours} "
+                               f"{client_writes}, or the standby "
+                               f"reconciled {standby_reconciles}")
+
+        # N3. mutations: plain, through 409s, after dropped watches
+        mutations = {"plain": mutate("SMOKE_MUTATION")}
+
+        def arm():
+            srv.fail_next_writes = INJECTED_CONFLICTS
+
+        mutations["conflicts"] = mutate("SMOKE_AFTER_CONFLICTS", arm)
+        wait_for(lambda: srv.fail_next_writes == 0,
+                 "the injected conflicts to be taken", 60)
+        srv.drop_watch_streams()
+        mutations["dropped_watches"] = mutate("SMOKE_AFTER_DROP")
+        log(f"  N3: mutations applied (ms until the DaemonSet carried "
+            f"them; re-applied where one was dropped, C12): "
+            f"{mutations}; "
+            f"{INJECTED_CONFLICTS} 409s injected, all taken ({card})")
+
+        # N4. fail over: SIGKILL the leader
+        rvs = settled("before the failover")
+        server_log.take()
+        t_kill = time.perf_counter()
+        leader.kill()
+        leader.wait(timeout=30)
+        wait_for(lambda: lease_holder() != lease,
+                 "the standby to take the Lease", FAILOVER_TIMEOUT_S, 0.05)
+        takeover_s = time.perf_counter() - t_kill
+        new_holder = lease_holder()
+        wait_for(lambda: leader_identity(standby) is not None and
+                 policy_reconciles(standby) > 0, "the new leader's first "
+                 "reconcile", FAILOVER_TIMEOUT_S)
+        standby_id = leader_identity(standby)
+        after = settled("after the failover")
+        churn = sorted(k for k in set(rvs) | set(after)
+                       if rvs.get(k) != after.get(k))
+        failover_log = server_log.take()
+        failover_conflicts = [(m, p) for m, p, code, _ in failover_log
+                              if m == "POST" and code == 409]
+        failover_states = [s for *_, s in failover_log if s]
+        new_reconciles = policy_reconciles(standby)
+        mutations["after_failover"] = mutate("SMOKE_AFTER_FAILOVER")
+        log(f"  N4: SIGKILL {lease}; {new_holder} led {takeover_s:.3f} s "
+            f"later (Lease 15 s, renewal 5 s); DaemonSets rewritten "
+            f"{churn}; creates answered 409 {failover_conflicts}; the "
+            f"policy's status writes {failover_states}; "
+            f"{new_reconciles:.0f} reconciles to settle; a mutation after "
+            f"it {mutations['after_failover']}")
+        if new_holder != standby_id or churn:
+            raise RuntimeError(f"failover: the Lease went to {new_holder} "
+                               f"(standby {standby_id}); churn {churn}")
+
+        # N5. uninstall
+        out, uninstall_s = cli("uninstall", "--purge-crds", script=INSTALL_SH)
+        left = {"crds": [c["metadata"]["name"] for c in ops.list(
+                    "apiextensions.k8s.io/v1", "CustomResourceDefinition")],
+                "daemonsets": sorted(daemonset_rvs()),
+                "policy": policy() is not None}
+        log(f"  N5: install.sh uninstall --purge-crds rc {out.returncode} "
+            f"in {uninstall_s:.3f} s; left {left}")
+        if out.returncode != 0 or any(left.values()):
+            raise RuntimeError(f"uninstall left {left}: {out.stderr}")
+        figures.update({
+            "install_to_ready_s": ready_s, "install_sh_s": install_s,
+            "chain_wall_s": kubelet_out["chain_s"],
+            "ready_after_kubelet_ms": after_mark_ms,
+            "leader_policy_reconciles": leader_reconciles,
+            "start_conflicts": start_conflicts,
+            "start_reapplied": start_reapplied,
+            "triad_launches": hbm["triad_launches"],
+            "containers": kubelet_out["containers"], "plugin_pod": pod_runs,
+            "status_s": status_s, "diff_s": diff_s,
+            "steady": {"writes": writes, "leader_verbs": verbs,
+                       "reads_by_source": reads,
+                       "standby_reconciles": standby_reconciles},
+            "mutations": mutations,
+            "failover": {"takeover_s": takeover_s, "churn": churn,
+                         "conflicts": failover_conflicts,
+                         "status_writes": failover_states,
+                         "reconciles": new_reconciles},
+            "uninstall_s": uninstall_s})
+    except BaseException:
+        for p in procs:  # what the operators said, for the failure
+            with open(p.logfile) as f:
+                log(f"  {' '.join(p.cmd)} (rc {p.poll()}), its log's "
+                    f"end:\n{f.read()[-6000:]}")
+        raise
+    finally:
+        kubelet_stop.set()
+        player.stop.set()
+        for p in procs:
+            if p.poll() is None:
+                p.terminate()
+                try:
+                    p.wait(timeout=15)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    p.wait()
+        if th.is_alive():
+            th.join(timeout=30)
+        for c in (ops, kubelet_client):
+            c.close()
+        srv.stop()
+        shutil.rmtree(work, ignore_errors=True)
+    figures["operator_exits"] = [p.returncode for p in procs]
+    figures["phase_s"] = time.perf_counter() - t_phase
+    return figures
+
+
+def sweep_phase(card: str) -> dict:
+    """N6: ``python -m tpu_operator_torch.scripts.hbm_sweep`` as a process
+    on the card; every point correct, the triad launched."""
+    base = container_base_env(None)
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m",
+                          "tpu_operator_torch.scripts.hbm_sweep"],
+                         env=base, capture_output=True, text=True,
+                         timeout=DEPLOYED_TIMEOUT_S)
+    sweep_s = time.perf_counter() - t0
+    sweep = json.loads(out.stdout.strip().splitlines()[-1])
+    sweep_launches = next(
+        (json.loads(ln[len("# kernels: "):])["triad"]
+         for ln in out.stderr.splitlines() if ln.startswith("# kernels: ")),
+        0)
+    log(f"  N6: python -m tpu_operator_torch.scripts.hbm_sweep rc "
+        f"{out.returncode} in {sweep_s:.3f} s, triad launched "
+        f"{sweep_launches} times: {json.dumps(sweep)} ({card})")
+    if out.returncode != 0 or "error" in sweep or not sweep["results"] or \
+            not all(r["correct"] for r in sweep["results"].values()) or \
+            sweep_launches == 0:
+        raise RuntimeError(f"the sweep: {sweep} {out.stderr[-1500:]}")
+    return {"sweep": sweep, "sweep_s": sweep_s,
+            "triad_launches": sweep_launches}
+
+
+def shell_e2e_phase(card: str, extra_env: dict | None = None) -> dict:
+    """N7: ``tpu_operator_torch/scripts/end-to-end.sh`` as a process, its
+    workload proof on the card (no GPU_VALIDATOR_ALLOW_CPU); the nine
+    stages in order. ``extra_env`` serves a rehearsal on the CPU only."""
+    base = container_base_env(extra_env)
+    t0 = time.perf_counter()
+    out = subprocess.run(["bash", SHELL_E2E], env={**base,
+                         "PYTHON": sys.executable}, capture_output=True,
+                         text=True, timeout=DEPLOYED_TIMEOUT_S)
+    e2e_s = time.perf_counter() - t0
+    stages = [ln.split()[1] for ln in out.stdout.splitlines()
+              if ln.startswith("STAGE_OK")]
+    proof = next((ln for ln in out.stderr.splitlines()
+                  if "cuda validation OK" in ln), "")
+    log(f"  N7: end-to-end.sh rc {out.returncode} in {e2e_s:.3f} s, stages "
+        f"{stages}; the workload proof: {proof.strip()} ({card})")
+    if out.returncode != 0 or stages != SHELL_STAGES or \
+            out.stdout.strip().splitlines()[-1] != "END_TO_END_OK":
+        raise RuntimeError(f"end-to-end.sh: {out.stdout[-2000:]} "
+                           f"{out.stderr[-2000:]}")
+    return {"shell_e2e_s": e2e_s, "stages": stages,
+            "workload_proof": proof.strip()}
+
+
 def main() -> int:
     import torch
 
@@ -5332,6 +6026,31 @@ def main() -> int:
     log(json.dumps({"chaos": chaos, "federation": federation,
                     "launches_in_process": launches_m}))
 
+    # N: the operator as it is deployed, over HTTP with leader election,
+    # then the sweep and the shell e2e as processes. This process launches
+    # nothing in it; the validator pod's hbm-validation child and the
+    # sweep's process report their own triad counts
+    hbm_probe.triad_.launches = 0
+    fa.flash_attention_blocks.launches = 0
+    log("# phase N: the operator as it is deployed (the mock apiserver, "
+        "install.sh, two gpu-operator processes under leader election, "
+        "mutations, a SIGKILL failover, uninstall; the HBM sweep; the "
+        "shell e2e)")
+    torch.cuda.empty_cache()
+    deployed = deployed_phase(torch, card)
+    sweep = sweep_phase(card)
+    shell_e2e = shell_e2e_phase(card)
+    launches_n = {"triad": hbm_probe.triad_.launches,
+                  "flash_attention": fa.flash_attention_blocks.launches}
+    log(f"  kernel launches in phase N: triad {deployed['triad_launches']} "
+        f"in the hbm-validation child, {sweep['triad_launches']} in the "
+        f"sweep; in this process {launches_n}")
+    if any(launches_n.values()):
+        raise RuntimeError("phase N launched a kernel in this process")
+    log(json.dumps({"deployed": deployed, "sweep": sweep,
+                    "shell_e2e": shell_e2e,
+                    "launches_in_process": launches_n}))
+
     # 14. the kernel table
     kernels = [{
         "name": "triad",
@@ -5346,6 +6065,8 @@ def main() -> int:
         "launches_phase_k_child": migration["triad_launches"],
         "launches_phase_k_node_b_child": migration["triad_launches_node_b"],
         "launches_phase_m_in_process": launches_m["triad"],
+        "launches_phase_n_child": deployed["triad_launches"],
+        "launches_phase_n_sweep": sweep["triad_launches"],
         "max_abs_err": triad_err,
         "tolerance": TRIAD_TOLERANCE,
         "ms": kernel_ms,

@@ -182,6 +182,9 @@ def test_port_imports_without_jax_or_the_jax_package():
         "tpu_operator_torch.cli.gpuop_cfg",
         # chaos and federation
         *NO_TORCH,
+        # the operational scripts
+        "tpu_operator_torch.scripts",
+        "tpu_operator_torch.scripts.hbm_sweep",
     }
     assert expected <= set(res["modules"])
     assert res["leaked"] == []
@@ -204,3 +207,66 @@ def test_chip_smoke_refuses_a_host_without_cuda(tmp_path):
                              capture_output=True, text=True, timeout=120)
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
+
+
+MOCK_APISERVER_PROBE = textwrap.dedent("""
+    import json, sys
+
+    for name in ("jax", "jaxlib", "tpu_operator"):
+        sys.modules[name] = None
+
+    import chip_smoke
+    from tpu_operator_torch.api.clusterpolicy import new_cluster_policy
+    from tpu_operator_torch.api.crd import all_crds
+    from tpu_operator_torch.runtime.kubeclient import HTTPClient, KubeConfig
+
+    srv = chip_smoke.load_mock_apiserver().MockApiServer().start()
+    c = HTTPClient(KubeConfig(server=srv.url, token="t",
+                              namespace="gpu-operator"))
+    try:
+        for crd in all_crds():  # registers the port's schemas
+            c.create(crd)
+        bad = new_cluster_policy(spec={"validator": {
+            "driver": {"enabled": False}}})
+        try:  # admission: the CRD's CEL rule refuses it
+            c.create(bad)
+            refused = ""
+        except Exception as e:
+            refused = type(e).__name__
+        c.create(new_cluster_policy())
+        c.create({"apiVersion": "v1", "kind": "Node",
+                  "metadata": {"name": "n0"}})
+        c.patch("v1", "Node", "n0", {"metadata": {"labels": {"a": "b"}}})
+        c.create({"apiVersion": "v1", "kind": "Pod", "metadata": {
+            "name": "p0", "namespace": "gpu-operator"}, "spec": {}})
+        c.evict("p0", "gpu-operator")
+        print(json.dumps({
+            "refused": refused,
+            "labels": c.get("v1", "Node", "n0")["metadata"]["labels"],
+            "evicted": c.get_or_none("v1", "Pod", "p0",
+                                     "gpu-operator") is None,
+            "leaked": sorted(m for m in sys.modules
+                             if m.split(".")[0] in ("jax", "jaxlib",
+                                                    "tpu_operator")
+                             and sys.modules[m] is not None)}))
+    finally:
+        c.close()
+        srv.stop()
+""")
+
+
+def test_chip_smoke_serves_the_mock_apiserver_without_the_jax_package():
+    """Phase N loads tests/mock_apiserver.py by path; the modules its
+    handlers import as a request needs them (admission, merge patch,
+    label match) are the port's, and JAX and the JAX package stay out,
+    with every such request answered."""
+    import json
+
+    out = subprocess.run([sys.executable, "-c", MOCK_APISERVER_PROBE],
+                         cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res == {"refused": "InvalidError", "labels": {"a": "b"},
+                   "evicted": True, "leaked": []}
+

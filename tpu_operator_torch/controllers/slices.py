@@ -6,7 +6,12 @@ is one slice of a multi-host pool — an ``mnnvl`` pool, whose NVLink
 domain spans hosts (``state/nodepool.py``) — keyed by GKE's nodepool, as
 the topology manager's grouped agreement keys it:
 
-    {id, product, topology, hosts, hostsValidated, validated, upgradeState}
+    {id, accelerator, topology, hosts, hostsValidated, validated,
+     upgradeState}
+
+``accelerator`` is the reference's key, holding the pool's
+``gpu.product``: the key the CRD's ``status.slices`` schema declares and
+``gpuop-cfg status`` prints.
 
 A slice is ``validated`` only when EVERY host's validation-gate pod is
 Ready (grouped readiness). Terminating pods don't count: a dying
@@ -119,7 +124,7 @@ def slice_status(client: Client, namespace: str,
             n_ok = sum(1 for m in members if m in validated)
             rows.append({
                 "id": slice_id,
-                "product": pool.product,
+                "accelerator": pool.product,
                 "topology": pool.topology,
                 "hosts": len(members),
                 "hostsValidated": n_ok,
