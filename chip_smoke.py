@@ -4978,6 +4978,10 @@ KUBELET_TICK_S = 0.5
 MUTATION_WAIT_S = 10.0
 MUTATION_NUDGES = 3
 INJECTED_CONFLICTS = 5
+# a reconnect the apiserver's full accept queue refused waits for TCP to
+# send its SYN again: 1 s after the first (RFC 6298's initial timeout),
+# then 2 s and 4 s more; a reopen past this came through a retransmission
+RETRANSMIT_S = 0.9
 FAILOVER_TIMEOUT_S = 60
 SETTLE_S = 3.0
 DEPLOYED_TIMEOUT_S = 600
@@ -5045,6 +5049,94 @@ class ServerLog:
             if method in ("POST", "PUT", "PATCH", "DELETE"):
                 out[f"{method} {path}"] = out.get(f"{method} {path}", 0) + 1
         return out
+
+
+class _MarkedWriter:
+    """A watch stream's writer that notes when a frame carrying the
+    stream log's marker first goes out on it."""
+
+    def __init__(self, inner, rec: dict, streams: "WatchStreamLog"):
+        self._inner, self._rec, self._streams = inner, rec, streams
+
+    def write(self, data):
+        marker = self._streams.marker
+        if marker and self._rec["marked"] is None and marker in data:
+            self._rec["marked"] = time.monotonic()
+        return self._inner.write(data)
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+
+class WatchStreamLog:
+    """Every watch stream the mock apiserver serves, seen from the server:
+    its collection, the resourceVersion it resumed from, when it opened
+    and ended, and when a frame carrying ``marker`` (bytes) first went out
+    on it; and when each PUT arrived. Times are ``time.monotonic()``. It
+    changes nothing the server sends."""
+
+    def __init__(self, srv):
+        self.streams, self.puts = [], []
+        self.marker = None
+        self._lock = threading.Lock()
+        handler = srv.http.RequestHandlerClass  # this server's own class
+        serve, put = handler._serve_watch, handler.do_PUT
+        log_ = self
+
+        def _serve_watch(h, coll_path, since_rv=""):
+            rec = {"collection": coll_path.rsplit("/", 1)[-1],
+                   "since": since_rv, "opened": time.monotonic(),
+                   "ended": None, "marked": None}
+            with log_._lock:
+                log_.streams.append(rec)
+            h.wfile = _MarkedWriter(h.wfile, rec, log_)
+            try:
+                return serve(h, coll_path, since_rv)
+            finally:
+                rec["ended"] = time.monotonic()
+
+        def do_PUT(h):
+            with log_._lock:
+                log_.puts.append((time.monotonic(), h.path.split("?")[0]))
+            return put(h)
+
+        handler._serve_watch, handler.do_PUT = _serve_watch, do_PUT
+
+    def after(self, t0: float, watched: tuple = (),
+              put_to: str = "") -> dict:
+        """What became of the streams open at ``t0`` (a drop): how many
+        ended and when, when their successors opened (ms after ``t0``;
+        those past RETRANSMIT_S waited for a dropped SYN to be sent
+        again), for each successor on a ``watched`` collection its
+        resume point and when the marked frame went out on it (and the
+        first such time a collection), and when each PUT to a path
+        ending in ``put_to`` arrived."""
+        with self._lock:
+            streams, puts = list(self.streams), list(self.puts)
+
+        def ms(t):
+            return None if t is None else round((t - t0) * 1e3, 1)
+
+        dropped = [s for s in streams if s["opened"] < t0
+                   and s["ended"] is not None and s["ended"] >= t0]
+        reopened = [s for s in streams if s["opened"] >= t0]
+        opened_ms = sorted(ms(s["opened"]) for s in reopened)
+        return {
+            "dropped": len(dropped),
+            "ended_ms": [min((ms(s["ended"]) for s in dropped), default=None),
+                         max((ms(s["ended"]) for s in dropped), default=None)],
+            "reopened": len(reopened), "reopened_ms": opened_ms,
+            "after_retransmit": sum(t >= RETRANSMIT_S * 1e3
+                                    for t in opened_ms),
+            "puts_ms": [ms(t) for t, path in puts
+                        if t >= t0 and path.endswith(put_to)],
+            "first_sent_ms": {c: min((ms(s["marked"]) for s in reopened
+                                      if s["collection"] == c
+                                      and s["marked"] is not None),
+                                     default=None) for c in watched},
+            "watched": [(s["collection"], s["since"], ms(s["opened"]),
+                         ms(s["marked"])) for s in reopened
+                        if s["collection"] in watched]}
 
 
 def node_object(name: str, labels: dict | None = None,
@@ -5182,6 +5274,7 @@ def deployed_phase(torch, card: str, extra_env: dict | None = None,
     api_mod = load_mock_apiserver()
     srv = api_mod.MockApiServer().start()
     server_log = ServerLog(srv)
+    stream_log = WatchStreamLog(srv)
     cfg = KubeConfig(server=srv.url, token="smoke", namespace=
                      RECONCILE_NAMESPACE)
     ops, kubelet_client = HTTPClient(cfg), HTTPClient(cfg)
@@ -5357,6 +5450,12 @@ def deployed_phase(torch, card: str, extra_env: dict | None = None,
         except BaseException as e:  # re-raised by the phase below
             kubelet_out["error"] = e
 
+    def relisted(proc) -> int:
+        """The watches ``proc`` re-listed after the 2 s back-off (its
+        kubeclient logs each)."""
+        with open(proc.logfile) as f:
+            return f.read().count("re-listing in 2s")
+
     th = threading.Thread(target=kubelet, name="smoke-kubelet", daemon=True)
     try:
         # N1. install, two replicas, ready
@@ -5475,8 +5574,29 @@ def deployed_phase(torch, card: str, extra_env: dict | None = None,
         mutations["conflicts"] = mutate("SMOKE_AFTER_CONFLICTS", arm)
         wait_for(lambda: srv.fail_next_writes == 0,
                  "the injected conflicts to be taken", 60)
+        stream_log.marker = b'"SMOKE_AFTER_DROP"'
+        relists = [relisted(p) for p in procs]
+        t_drop = time.monotonic()
         srv.drop_watch_streams()
         mutations["dropped_watches"] = mutate("SMOKE_AFTER_DROP")
+        streams = stream_log.after(
+            t_drop, ("gpuclusterpolicies", "daemonsets"),
+            "/gpuclusterpolicies/gpu-cluster-policy")
+        streams["relisted"] = [relisted(p) - n
+                               for p, n in zip(procs, relists)]
+        mutations["dropped_watches"]["streams"] = streams
+        log(f"  N3 streams after the drop (ms after it, seen by the "
+            f"apiserver): {streams['dropped']} ended in "
+            f"{streams['ended_ms']}; {streams['reopened']} reopened at "
+            f"{streams['reopened_ms']}, {streams['after_retransmit']} of "
+            f"them after a SYN the full accept queue dropped was sent "
+            f"again (>= {RETRANSMIT_S} s); re-listed after the 2 s "
+            f"back-off, by operator process: {streams['relisted']}; the "
+            f"change's PUTs at {streams['puts_ms']}, first sent on "
+            f"{streams['first_sent_ms']} (a DaemonSets stream: the leader "
+            f"wrote it); the policy's and the DaemonSets' new streams "
+            f"(collection, resumed from rv, opened, the change sent): "
+            f"{streams['watched']}")
         log(f"  N3: mutations applied (ms until the DaemonSet carried "
             f"them; re-applied where one was dropped, C12): "
             f"{mutations}; "

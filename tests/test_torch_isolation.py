@@ -270,3 +270,26 @@ def test_chip_smoke_serves_the_mock_apiserver_without_the_jax_package():
     assert res == {"refused": "InvalidError", "labels": {"a": "b"},
                    "evicted": True, "leaked": []}
 
+
+
+# the tests' helpers that state they import nothing of the JAX package:
+# the name map, the port's render of every state, and the spawned ranks'
+# bodies
+JAX_FREE_HELPERS = ("torch_naming", "torch_render_all", "torch_ring_ranks",
+                    "torch_burnin_ranks", "torch_parallel_ranks")
+
+
+@pytest.mark.parametrize("helper", JAX_FREE_HELPERS)
+def test_jax_free_helpers_import_without_the_jax_package(helper):
+    probe = textwrap.dedent(f"""
+        import sys
+        for name in ("jax", "jaxlib", "tpu_operator", "flax", "optax",
+                     "orbax"):
+            sys.modules[name] = None
+        import {helper}
+        """)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "tests"), ROOT]))
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr

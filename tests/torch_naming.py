@@ -153,6 +153,11 @@ ENV = {
     "TPU_PLUGIN_CONFIG_DEFAULT": "GPU_PLUGIN_CONFIG_DEFAULT",
     "VTPU_RESOURCE_NAME": "VGPU_RESOURCE_NAME",
 }
+# an operand's image from the env when the spec names none
+# (api/image.py env_var_for: the state's name, upper-cased, + _IMAGE)
+IMAGE_ENV = {"LIBTPU_DRIVER_IMAGE": "GPU_DRIVER_IMAGE"}
+# the property tiers' depth knob (tests/test_fuzz_*.py)
+FUZZ_ENV = {"TPU_FUZZ_EXAMPLES": "GPU_FUZZ_EXAMPLES"}
 # an env value whose default differs: libtpu's default channel "stable"
 # stands for "any driver version" (GPU_DRIVER_VERSION empty)
 ENV_VALUE_DEFAULTS = {("LIBTPU_CHANNEL", "stable"): ""}
@@ -272,10 +277,23 @@ PLACEMENT_TEXT = (("ICI domain", "NVLink domain"),
 # the operator's metric series (placement, fleet cards, migrations and the
 # rest): the prefix alone changes
 METRIC_PREFIX = ("tpu_operator_", "gpu_operator_")
+# the series whose names say TPU past the prefix: the fleet gauges and
+# three of the node-status exporter's
+METRIC_SERIES = {
+    "tpu_operator_tpu_nodes_total": "gpu_operator_gpu_nodes_total",
+    "tpu_operator_tpu_chips_total": "gpu_operator_gpu_chips_total",
+    "tpu_operator_node_tpu_chips": "gpu_operator_node_gpus",
+    "tpu_operator_node_matmul_mxu_utilization":
+        "gpu_operator_node_matmul_tensor_core_utilization",
+    "tpu_operator_node_ici_fraction_of_peak":
+        "gpu_operator_node_nvlink_fraction_of_peak",
+}
 
 
 def metric(series: str) -> str:
     """A reference metric series under the rule."""
+    if series in METRIC_SERIES:
+        return METRIC_SERIES[series]
     a, b = METRIC_PREFIX
     return b + series[len(a):] if series.startswith(a) else series
 
