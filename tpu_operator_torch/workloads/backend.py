@@ -15,12 +15,15 @@ device *initialization* the same discipline:
 - ``resolve_device()`` — the one place an entry point's ``device``
   argument becomes a ``torch.device``: ``None`` is ``cuda:0``, and a CUDA
   device where CUDA is unusable raises instead of running on the CPU.
+- ``span()`` — a named span on the hot path, recorded only while
+  ``torch.profiler`` is profiling.
 
 No k8s dependencies: this runs inside validator pods and on bare hosts.
 """
 
 from __future__ import annotations
 
+import contextlib
 import glob
 import os
 import sys
@@ -168,3 +171,28 @@ def synchronize(device) -> None:
     """Wait for the device's queued work (no-op on the CPU)."""
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
+
+
+SPAN_PREFIX = "tpu_operator_torch."
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A span named ``tpu_operator_torch.<name>`` around a hot-path step.
+
+    While ``torch.profiler`` is profiling, this is a
+    ``torch.profiler.record_function``: the span lands in the profiler's
+    trace on its clock, beside the device operations launched inside it,
+    so an operator tracing a validator proof or an attention call sees
+    which part of the call the host was in when the card sat idle. With
+    no profiler running it is one shared null context: on an H100 host
+    (torch 2.11) an unrecorded ``record_function`` still costs ~9 us a
+    span, and the check ~0.5 us.
+
+    The control plane's tracer (``runtime/tracing.py``) is separate on
+    purpose: it is torch-free and keeps the host's own clock, and these
+    spans belong on the profiler's, so each clock has one tracer.
+    """
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(SPAN_PREFIX + name)
+    return _NO_SPAN

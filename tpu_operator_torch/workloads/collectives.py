@@ -27,7 +27,7 @@ import torch
 import torch.distributed as dist
 
 from ..parallel import mesh
-from .backend import resolve_device, synchronize
+from .backend import resolve_device, span, synchronize
 from .hardware import chip_spec_for, device_kind
 
 # per-card link bytes moved per byte of PER-RANK INPUT, ring algorithms
@@ -71,43 +71,56 @@ def _step(op: str, c: torch.Tensor, n: int, rank: int) -> torch.Tensor:
     input averages to ones again); every other op leaves ``c`` unchanged
     and returns a new tensor. The reduce_scatter output is 1/n of its
     input and is re-expanded by an all_gather, so that chain times the
-    RS+AG pair and its per-op figure is conservative."""
-    k = c.numel()
-    if op == "all_reduce":
-        dist.all_reduce(c)
-        return c.mul_(1.0 / n)
-    if op == "all_gather":
-        g = torch.empty(n * k, dtype=c.dtype, device=c.device)
-        dist.all_gather_into_tensor(g, c)
-        # return a REMOTE block (the next rank's): the local block never
-        # crossed the wire, so checking it would prove nothing
-        i = (rank + 1) % n
-        return g[i * k:(i + 1) * k]
-    if op == "reduce_scatter":
-        s = torch.empty(k // n, dtype=c.dtype, device=c.device)
-        dist.reduce_scatter_tensor(s, c)
-        s.mul_(1.0 / n)
-        g = torch.empty(k, dtype=c.dtype, device=c.device)
-        dist.all_gather_into_tensor(g, s)
-        return g
-    if op == "all_to_all":
-        y = torch.empty_like(c)
-        dist.all_to_all_single(y, c)
-        return y
-    if op == "ppermute":
-        # shard i lands on rank i+1; on one rank the permutation is the
-        # identity and there is no peer to send to
-        if n == 1:
-            return c.clone()
-        y = torch.empty_like(c)
-        reqs = dist.batch_isend_irecv([
-            dist.P2POp(dist.isend, c, (rank + 1) % n),
-            dist.P2POp(dist.irecv, y, (rank - 1) % n),
-        ])
-        for r in reqs:
-            r.wait()
-        return y
-    raise ValueError(f"unknown collective {op!r}")
+    RS+AG pair and its per-op figure is conservative.
+
+    Under ``torch.profiler`` the step records the span
+    ``tpu_operator_torch.collectives.step``, holding ``.reduce`` around
+    each ``dist`` call and ``.scale`` around each scale by 1/n."""
+    with span("collectives.step"):
+        k = c.numel()
+        if op == "all_reduce":
+            with span("collectives.reduce"):
+                dist.all_reduce(c)
+            with span("collectives.scale"):
+                return c.mul_(1.0 / n)
+        if op == "all_gather":
+            g = torch.empty(n * k, dtype=c.dtype, device=c.device)
+            with span("collectives.reduce"):
+                dist.all_gather_into_tensor(g, c)
+            # return a REMOTE block (the next rank's): the local block
+            # never crossed the wire, so checking it would prove nothing
+            i = (rank + 1) % n
+            return g[i * k:(i + 1) * k]
+        if op == "reduce_scatter":
+            s = torch.empty(k // n, dtype=c.dtype, device=c.device)
+            with span("collectives.reduce"):
+                dist.reduce_scatter_tensor(s, c)
+            with span("collectives.scale"):
+                s.mul_(1.0 / n)
+            g = torch.empty(k, dtype=c.dtype, device=c.device)
+            with span("collectives.reduce"):
+                dist.all_gather_into_tensor(g, s)
+            return g
+        if op == "all_to_all":
+            y = torch.empty_like(c)
+            with span("collectives.reduce"):
+                dist.all_to_all_single(y, c)
+            return y
+        if op == "ppermute":
+            # shard i lands on rank i+1; on one rank the permutation is
+            # the identity and there is no peer to send to
+            if n == 1:
+                return c.clone()
+            y = torch.empty_like(c)
+            with span("collectives.reduce"):
+                reqs = dist.batch_isend_irecv([
+                    dist.P2POp(dist.isend, c, (rank + 1) % n),
+                    dist.P2POp(dist.irecv, y, (rank - 1) % n),
+                ])
+                for r in reqs:
+                    r.wait()
+            return y
+        raise ValueError(f"unknown collective {op!r}")
 
 
 def _chain(op: str, x: torch.Tensor, n: int, rank: int,

@@ -17,6 +17,12 @@ hop it arrived on.
 on a CUDA tensor and runs its plain version,
 ``flash_attention_blocks_reference``, on a CPU tensor. The plain version
 repeats the TPU kernel's arithmetic chunk by chunk, in f32.
+
+Under ``torch.profiler`` each entry records a ``tpu_operator_torch.*``
+span (``backend.span``): ``flash_attention`` holds ``.fold`` (the
+layout change to [BH, S, D]), ``flash_attention_blocks`` (checks, its
+``.align`` copies, allocations, its ``.launch``) and ``.unfold``;
+``flash_bwd`` covers the backward.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from typing import Tuple
 import torch
 
 from ..kernels import build
+from .backend import span
 
 NEG_INF = -1e30
 
@@ -134,37 +141,42 @@ def flash_attention_blocks(
     chunks; ``q_tile``/``chunk`` are the plain version's loop steps, used
     on a CPU tensor.
     """
-    _check(q, k, v)
-    if q.device.type == "cpu":
-        return flash_attention_blocks_reference(q, k, v, q_offset, k_offset,
-                                                causal, q_tile, chunk)
-    bh, sq, d = q.shape
-    sk = k.shape[1]
-    if q.dtype != KERNEL_DTYPE:
-        raise ValueError(f"flash_attention_blocks: the kernel takes "
-                         f"{KERNEL_DTYPE} on the card, got {q.dtype}")
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash_attention_blocks: head dim {d} not in "
-                         f"{KERNEL_HEAD_DIMS}")
-    q, k, v = _aligned(q), _aligned(k), _aligned(v)
-    out = torch.empty_like(q)
-    m = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
-    l = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
-    if bh == 0 or sq == 0:
+    with span("flash_attention_blocks"):
+        _check(q, k, v)
+        if q.device.type == "cpu":
+            return flash_attention_blocks_reference(q, k, v, q_offset,
+                                                    k_offset, causal, q_tile,
+                                                    chunk)
+        bh, sq, d = q.shape
+        sk = k.shape[1]
+        if q.dtype != KERNEL_DTYPE:
+            raise ValueError(f"flash_attention_blocks: the kernel takes "
+                             f"{KERNEL_DTYPE} on the card, got {q.dtype}")
+        if d not in KERNEL_HEAD_DIMS:
+            raise ValueError(f"flash_attention_blocks: head dim {d} not in "
+                             f"{KERNEL_HEAD_DIMS}")
+        # at B == 1 the fold is a view, and these are its copies
+        with span("flash_attention_blocks.align"):
+            q, k, v = _aligned(q), _aligned(k), _aligned(v)
+        out = torch.empty_like(q)
+        m = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+        l = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+        if bh == 0 or sq == 0:
+            return out, m, l
+        lib = build.load("flash_attention", _SIGNATURES)
+        with span("flash_attention_blocks.launch"), \
+                torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            err = lib.flash_attention_fwd_bf16(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                out.data_ptr(), m.data_ptr(), l.data_ptr(),
+                bh, sq, sk, d, int(q_offset), int(k_offset),
+                1 if causal else 0, 1.0 / math.sqrt(d), stream)
+        if err != 0:
+            raise RuntimeError(f"flash attention kernel launch failed: "
+                               f"cudaError {err}")
+        flash_attention_blocks.launches += 1
         return out, m, l
-    lib = build.load("flash_attention", _SIGNATURES)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attention_fwd_bf16(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), m.data_ptr(), l.data_ptr(),
-            bh, sq, sk, d, int(q_offset), int(k_offset),
-            1 if causal else 0, 1.0 / math.sqrt(d), stream)
-    if err != 0:
-        raise RuntimeError(f"flash attention kernel launch failed: "
-                           f"cudaError {err}")
-    flash_attention_blocks.launches += 1
-    return out, m, l
 
 
 flash_attention_blocks.launches = 0
@@ -182,39 +194,41 @@ flash_attention_blocks.launches = 0
 def flash_bwd(q, k, v, out, m, l, dout, causal: bool, chunk: int = 512):
     """Chunked-recompute backward of ``_flash_bwd_rule``, in f32, with
     cotangents cast back to the input dtypes."""
-    bh, sq, d = q.shape
-    sk = k.shape[1]
-    chunk = min(chunk, sk)
-    scale = 1.0 / math.sqrt(d)
-    l_safe = torch.where(l == 0.0, 1.0, l)
-    in_dtypes = (q.dtype, k.dtype, v.dtype)
-    # compute in f32 like the forward: recomputed P must match the
-    # forward's P, not a bf16 quantisation
-    q = q.float()
-    dout = dout.float()
-    out = out.float()
-    delta = (dout * out).sum(dim=-1)                           # [BH, Sq]
-    q_pos = torch.arange(sq, device=q.device)[:, None]
-    dead = (m <= NEG_INF / 2)[..., None]
-    dq = torch.zeros((bh, sq, d), dtype=torch.float32, device=q.device)
-    dk_cs, dv_cs = [], []
-    for k0 in range(0, sk, chunk):
-        ks = k[:, k0:k0 + chunk].float()
-        vs = v[:, k0:k0 + chunk].float()
-        s = torch.einsum("bqd,bkd->bqk", q, ks) * scale         # [BH,Sq,C]
-        if causal:
-            k_pos = k0 + torch.arange(ks.shape[1], device=q.device)[None, :]
-            s = torch.where(q_pos >= k_pos, s, NEG_INF)
-        p = torch.exp(s - m[..., None]) / l_safe[..., None]
-        p = torch.where(dead, 0.0, p)
-        dv_cs.append(torch.einsum("bqk,bqd->bkd", p, dout))
-        dp = torch.einsum("bqd,bkd->bqk", dout, vs)
-        ds = p * (dp - delta[..., None])
-        dq += torch.einsum("bqk,bkd->bqd", ds, ks) * scale
-        dk_cs.append(torch.einsum("bqk,bqd->bkd", ds, q) * scale)
-    dk = torch.cat(dk_cs, dim=1)
-    dv = torch.cat(dv_cs, dim=1)
-    return tuple(t.to(dt) for t, dt in zip((dq, dk, dv), in_dtypes))
+    with span("flash_bwd"):
+        bh, sq, d = q.shape
+        sk = k.shape[1]
+        chunk = min(chunk, sk)
+        scale = 1.0 / math.sqrt(d)
+        l_safe = torch.where(l == 0.0, 1.0, l)
+        in_dtypes = (q.dtype, k.dtype, v.dtype)
+        # compute in f32 like the forward: recomputed P must match the
+        # forward's P, not a bf16 quantisation
+        q = q.float()
+        dout = dout.float()
+        out = out.float()
+        delta = (dout * out).sum(dim=-1)                           # [BH, Sq]
+        q_pos = torch.arange(sq, device=q.device)[:, None]
+        dead = (m <= NEG_INF / 2)[..., None]
+        dq = torch.zeros((bh, sq, d), dtype=torch.float32, device=q.device)
+        dk_cs, dv_cs = [], []
+        for k0 in range(0, sk, chunk):
+            ks = k[:, k0:k0 + chunk].float()
+            vs = v[:, k0:k0 + chunk].float()
+            s = torch.einsum("bqd,bkd->bqk", q, ks) * scale         # [BH,Sq,C]
+            if causal:
+                k_pos = k0 + torch.arange(ks.shape[1],
+                                          device=q.device)[None, :]
+                s = torch.where(q_pos >= k_pos, s, NEG_INF)
+            p = torch.exp(s - m[..., None]) / l_safe[..., None]
+            p = torch.where(dead, 0.0, p)
+            dv_cs.append(torch.einsum("bqk,bqd->bkd", p, dout))
+            dp = torch.einsum("bqd,bkd->bqk", dout, vs)
+            ds = p * (dp - delta[..., None])
+            dq += torch.einsum("bqk,bkd->bqd", ds, ks) * scale
+            dk_cs.append(torch.einsum("bqk,bqd->bkd", ds, q) * scale)
+        dk = torch.cat(dk_cs, dim=1)
+        dv = torch.cat(dv_cs, dim=1)
+        return tuple(t.to(dt) for t, dt in zip((dq, dk, dv), in_dtypes))
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -237,7 +251,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Single-device flash attention, [B, S, H, D] layout (the drop-in for
     ``reference_attention``). Differentiable: the backward pass is the
     chunked recomputation of ``flash_bwd``."""
-    B, S, H, D = q.shape
-    fold = lambda t: t.transpose(1, 2).reshape(B * H, -1, D)
-    out = _FlashAttention.apply(fold(q), fold(k), fold(v), causal)
-    return out.reshape(B, H, S, D).transpose(1, 2)
+    with span("flash_attention"):
+        B, S, H, D = q.shape
+        fold = lambda t: t.transpose(1, 2).reshape(B * H, -1, D)
+        with span("flash_attention.fold"):
+            qf, kf, vf = fold(q), fold(k), fold(v)
+        out = _FlashAttention.apply(qf, kf, vf, causal)
+        del qf, kf, vf
+        with span("flash_attention.unfold"):
+            return out.reshape(B, H, S, D).transpose(1, 2)

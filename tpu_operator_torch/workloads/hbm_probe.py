@@ -22,7 +22,7 @@ from typing import Optional
 import torch
 
 from ..kernels import build
-from .backend import resolve_device, synchronize
+from .backend import resolve_device, span, synchronize
 from .hardware import chip_spec_for, device_kind
 
 _SIGNATURES = {
@@ -65,19 +65,23 @@ def triad_(a: torch.Tensor, b: torch.Tensor, alpha: float = 2.0) -> torch.Tensor
 
     On a CUDA tensor this launches kernel B1 (and counts the launch in
     ``triad_.launches``); on a CPU tensor it runs the plain version.
+    Under ``torch.profiler`` either records the span
+    ``tpu_operator_torch.triad_``.
     """
-    _check(a, b)
-    if a.device.type == "cpu":
-        return triad_reference_(a, b, alpha)
-    lib = build.load("triad", _SIGNATURES)
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = lib.triad_f32(a.data_ptr(), b.data_ptr(), float(alpha),
-                            a.numel(), stream)
-    if err != 0:
-        raise RuntimeError(f"triad kernel launch failed: cudaError {err}")
-    triad_.launches += 1
-    return a
+    with span("triad_"):
+        _check(a, b)
+        if a.device.type == "cpu":
+            return triad_reference_(a, b, alpha)
+        lib = build.load("triad", _SIGNATURES)
+        with torch.cuda.device(a.device):
+            stream = torch.cuda.current_stream(a.device).cuda_stream
+            err = lib.triad_f32(a.data_ptr(), b.data_ptr(), float(alpha),
+                                a.numel(), stream)
+        if err != 0:
+            raise RuntimeError(f"triad kernel launch failed: "
+                               f"cudaError {err}")
+        triad_.launches += 1
+        return a
 
 
 triad_.launches = 0
