@@ -27,24 +27,29 @@ Phases, each fatal:
 
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
 2. build the hand-written kernels from the checkout's sources, one nvcc
-   per source, all at once; the flash kernel's two instantiations must
-   spill nothing and keep their setmaxnreg (no ptxas warning C7508);
+   per source, all at once; the two instantiations of each flash kernel
+   (forward and backward) must spill nothing, keep their setmaxnreg (no
+   ptxas warning C7508) and their asynchronous wgmma (no C7512);
 3. hold each kernel against its plain PyTorch version on the card: the
    triad at the main path's shape, a ragged length and a misaligned view;
    flash attention at the harness's and the long context's shapes, ragged
    lengths (also multiples of 64 that are not of 128), ring-hop offsets,
    rows that see no key inside a live block (exact), a block wholly in
-   the future (exact), non-causal D=128 and a two-block merge;
+   the future (exact), non-causal D=128 and a two-block merge; the
+   backward kernel at the training cell's shape, ragged lengths,
+   non-causal D=128, D=64 and dead rows (their dq exactly 0);
 4. run the validator chain with the triad's count set to 0, and require
    that the chain went through the kernel and wrote every barrier file;
    then the DCN proof, once on this one node (skipped) and once as node 1
    of 2 against a TCP listener this script opens on 127.0.0.1 (RTT_MS);
 5. run the collective suite over NCCL at world size 1 against its oracle;
-6. run the long-context path with the flash kernel's count set to 0, and
-   require that it is correct and went through the kernel;
+6. run the long-context path with the flash kernels' counts set to 0, and
+   require that it is correct and went through the kernels (the backward
+   through ``flash_attention``'s gradient check);
 7. time each kernel beside its bound, its plain version and the library
-   call computing the same function, the matmul proof, and the parts of
-   the flash ring's call on one card (fold, kernel, merge);
+   call computing the same function (SDPA's backward for the backward
+   kernel, timed here only), the matmul proof, and the parts of the flash
+   ring's call on one card (fold, kernel, merge);
 8. the burn-in (no kernel of its own): ``burnin.run()`` whose loss must
    fall; a TP and an FSDP step on one batch whose losses agree within
    2e-4; a checkpoint save, a restore into a fresh init whose parameters,
@@ -240,7 +245,7 @@ TRIAD_LAUNCHES_PER_HBM_PROOF = 2 + 3 * 2 + 3 * 26
 # operations side of the triad's bound
 F32_PEAK_TFLOPS = 67.0
 
-KERNELS = ("triad", "flash_attention")
+KERNELS = ("triad", "flash_attention", "flash_attention_bwd")
 # flash attention [B, S, H, D]: ringattention.run()'s defaults, and a 32k
 # context of 8 heads of 128, which long-context training runs
 FLASH_RUN_SHAPE = (1, 2048, 8, 64)
@@ -266,6 +271,21 @@ FLASH_ELEM_ATOL, FLASH_ELEM_RTOL = 1e-3, 2.0 ** -7
 # flash_attention's bf16 forward and backward against autograd of the f32
 # oracle, the tolerance of the JAX package's bf16 gradient test
 FLASH_GRAD_RTOL, FLASH_GRAD_ATOL = 0.05, 0.02
+# the backward kernel (B3) vs its plain version, dq, dk and dv each, bf16
+# inputs. B3 rounds P and dS to bf16 as MMA operands where the plain
+# version keeps them f32, both round the gradients to bf16, and dQ's
+# partial sums land in an order that changes from run to run (bulk
+# reductions from many blocks): each a relative 2**-9 at most, of rounding
+# noise that does not add up across a row, and read 0.0025-0.0028 of the
+# whole tensor's norm on the H100. So the whole tensor is held to 2**-7
+# (a margin of ~3), and its worst row, against the larger of its norm and
+# the median row's (rows of keys that few queries see are all but 0), to
+# 2**-6 (the worst row read 0.0037-0.0053): a tile of 64 queries or 128
+# keys dropped or misplaced moves its rows by far more
+FLASH_BWD_RTOL = 2.0 ** -7
+FLASH_BWD_ROW_RTOL = 2.0 ** -6
+# the training cell's shape: forward and backward of [1, 16384, 16, 128]
+FLASH_TRAIN_SHAPE = (1, 16384, 16, 128)
 
 
 # the burn-in: TP and FSDP losses of one step on one batch agree within
@@ -349,24 +369,28 @@ def check_triad(torch, hbm_probe, dev, gen, shape, offset: int) -> float:
     return err
 
 
-def check_flash_build(log_text: str) -> dict:
-    """ptxas's report of the flash kernel: bytes spilled (stores, loads)
-    per instantiation, by head width. Fails unless both widths are there
-    with nothing spilled, or where ptxas ignored setmaxnreg (C7508)."""
+def check_flash_build(log_text: str, kernel: str = "flash_fwd") -> dict:
+    """ptxas's report of a flash kernel (``flash_fwd``, B2, or
+    ``flash_bwd``, B3): bytes spilled (stores, loads) per instantiation,
+    by head width. Fails unless both widths are there with nothing
+    spilled, where ptxas ignored setmaxnreg (C7508) or where it
+    serialised the wgmma for want of registers (C7512)."""
     spills, width = {}, None
     for line in log_text.splitlines():
         if "Function properties for" in line:
-            found = re.search(r"flash_fwdILi(\d+)E", line)
+            found = re.search(kernel + r"ILi(\d+)E", line)
             width = int(found.group(1)) if found else None
         elif width is not None and "spill stores" in line:
             spills[width] = tuple(int(n) for n in re.findall(
                 r"(\d+) bytes spill (?:stores|loads)", line))
             width = None
-    log(f"  flash_fwd spills (stores, loads) by head width: {spills}")
+    log(f"  {kernel} spills (stores, loads) by head width: {spills}")
     if "C7508" in log_text or "setmaxnreg ignored" in log_text:
-        raise RuntimeError("ptxas ignored setmaxnreg in the flash kernel")
+        raise RuntimeError(f"ptxas ignored setmaxnreg in {kernel}")
+    if "C7512" in log_text:
+        raise RuntimeError(f"ptxas serialised the wgmma of {kernel}")
     if sorted(spills) != [64, 128] or any(any(v) for v in spills.values()):
-        raise RuntimeError(f"flash kernel spills or lacks an instantiation: "
+        raise RuntimeError(f"{kernel} spills or lacks an instantiation: "
                            f"{spills}")
     return spills
 
@@ -495,6 +519,55 @@ def check_flash_attention_grad(torch, fa, ra, dev, gen) -> dict:
     return errs
 
 
+def grad_errors(torch, x, r) -> dict:
+    """The whole tensor's relative error and its worst row's, against the
+    larger of the row's norm and the median row's."""
+    x, r = x.float(), r.float()
+    rows = r.reshape(-1, r.shape[-1])
+    d = (x.reshape(-1, r.shape[-1]) - rows).norm(dim=-1)
+    n = rows.norm(dim=-1)
+    den = torch.clamp(n, min=float(n.median()))
+    den = torch.where(den > 0, den, torch.ones_like(den))
+    return {"rel": ((x - r).norm() / r.norm()).item(),
+            "row": (d / den).max().item()}
+
+
+def check_flash_bwd(torch, fa, dev, gen, label, bh, sq, sk, d, causal=True,
+                    dead_rows=0) -> dict:
+    """Kernel B3 vs its plain version on seeded bf16 inputs and B2's
+    residuals; returns the errors of dq, dk, dv. The first ``dead_rows``
+    rows are made rows that see no key (out 0, m -1e30, l 0), as B2 leaves
+    them: their dq must be exactly 0."""
+    q, k, v = flash_inputs(torch, dev, gen, bh, sq, sk, d)
+    dout = torch.randn((bh, sq, d), generator=gen, device=dev).to(
+        torch.bfloat16)
+    out, m, l = fa.flash_attention_blocks(q, k, v, 0, 0, causal)
+    if dead_rows:
+        out[:, :dead_rows] = 0
+        m[:, :dead_rows] = fa.NEG_INF
+        l[:, :dead_rows] = 0
+    got = fa.flash_bwd(q, k, v, out, m, l, dout, causal)
+    want = fa.flash_bwd_reference(q, k, v, out, m, l, dout, causal)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, x, r in zip(("dq", "dk", "dv"), got, want):
+        e = grad_errors(torch, x, r)
+        errs[f"{name}_rel"], errs[f"{name}_row"] = e["rel"], e["row"]
+    ok = all(x.dtype == torch.bfloat16 for x in got) and all(
+        errs[f"{n}_rel"] <= FLASH_BWD_RTOL
+        and errs[f"{n}_row"] <= FLASH_BWD_ROW_RTOL for n in ("dq", "dk", "dv"))
+    if dead_rows:
+        errs["dead_dq_zero"] = bool((got[0][:, :dead_rows] == 0).all())
+        ok = ok and errs["dead_dq_zero"]
+    log(f"  flash_bwd {label} [{bh}, {sq}|{sk}, {d}] causal={causal}: "
+        f"{errs} (tolerances {FLASH_BWD_RTOL} the tensor, "
+        f"{FLASH_BWD_ROW_RTOL} a row)")
+    if not ok:
+        raise RuntimeError(f"flash backward kernel disagrees with its plain "
+                           f"version on {label}: {errs}")
+    return errs
+
+
 def long_context_path(torch, mesh, ra, n_cards: int) -> tuple:
     """ringattention's per-rank body for both strategies at run()'s
     defaults and the flash ring at the long shape, one rank per card;
@@ -565,6 +638,43 @@ def time_flash(torch, fa, dev, gen, spec, shape, plain_iters) -> dict:
             "library_ms": library_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "fraction_of_bound": bound_ms / ms,
             "tflops": 4.0 * bh * D * S * (S + 1) / 2 / (ms * 1e-3) / 1e12}
+
+
+def time_flash_bwd(torch, fa, dev, gen, spec, shape) -> dict:
+    """Kernel B3, its plain version and SDPA's backward on one causal
+    [B*H, S, D] block, with B2's residuals."""
+    B, S, H, D = shape
+    bh = B * H
+    q, k, v = flash_inputs(torch, dev, gen, bh, S, S, D)
+    dout = torch.randn((bh, S, D), generator=gen, device=dev).to(
+        torch.bfloat16)
+    out, m, l = fa.flash_attention_blocks(q, k, v, 0, 0, True)
+    q4, k4, v4 = (t[None].detach().requires_grad_() for t in (q, k, v))
+    sdpa_out = torch.nn.functional.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True)
+
+    def kernel():
+        fa.flash_bwd(q, k, v, out, m, l, dout, True)
+
+    def plain():
+        fa.flash_bwd_reference(q, k, v, out, m, l, dout, True)
+
+    def library():
+        torch.autograd.grad(sdpa_out, (q4, k4, v4), dout[None],
+                            retain_graph=True)
+
+    plain_runs = [cuda_ms(torch, plain, iters=2, warmup=1)]
+    kernel_runs = [cuda_ms(torch, kernel), cuda_ms(torch, kernel)]
+    plain_runs.append(cuda_ms(torch, plain, iters=2, warmup=1))
+    library_ms = cuda_ms(torch, library)
+    flops = 2.5 * 4.0 * bh * D * S * (S + 1) / 2
+    bound_ms = flops / (spec.peak_bf16_tflops * 1e12) * 1e3
+    ms = min(kernel_runs)
+    return {"shape": list(shape), "ms": ms, "ms_runs": kernel_runs,
+            "plain_ms": min(plain_runs), "plain_ms_runs": plain_runs,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": "operations", "fraction_of_bound": bound_ms / ms,
+            "tflops": flops / (ms * 1e-3) / 1e12}
 
 
 def time_ring_parts(torch, fa, ra, dev, gen) -> dict:
@@ -5781,6 +5891,8 @@ def main() -> int:
         for line in built.log.splitlines():
             log(f"    {line}")
     flash_spills = check_flash_build(builds["flash_attention"].log)
+    flash_bwd_spills = check_flash_build(builds["flash_attention_bwd"].log,
+                                         "flash_bwd")
 
     # 3. kernels against their plain versions
     log("# phase 3: kernels vs plain versions")
@@ -5816,6 +5928,21 @@ def main() -> int:
     flash_err = max(e["out"] for e in flash_errs)
     flash_row_rel = max(e["out_row_rel"] for e in flash_errs)
     check_flash_future_block(torch, fa, dev, gen, B * H, S, D)
+    TB, TS, TH, TD = FLASH_TRAIN_SHAPE
+    bwd_errs = [
+        check_flash_bwd(torch, fa, dev, gen, "training cell", TB * TH, TS,
+                        TS, TD),
+        check_flash_bwd(torch, fa, dev, gen, "ragged", 8, 4160, 4160, 128),
+        check_flash_bwd(torch, fa, dev, gen, "ragged", 8, 300, 260, 128),
+        check_flash_bwd(torch, fa, dev, gen, "ragged", 8, 300, 260, 64,
+                        causal=False),
+        check_flash_bwd(torch, fa, dev, gen, "non-causal", 8, 4096, 4096,
+                        128, causal=False),
+        check_flash_bwd(torch, fa, dev, gen, "run() shape", B * H, S, S, D),
+        check_flash_bwd(torch, fa, dev, gen, "dead rows", 8, 1000, 1000,
+                        128, dead_rows=60)]
+    bwd_rel = max(e[f"{n}_rel"] for e in bwd_errs for n in ("dq", "dk", "dv"))
+    bwd_row = max(e[f"{n}_row"] for e in bwd_errs for n in ("dq", "dk", "dv"))
 
     # 4. the main path, counted
     log("# phase 4: validator chain")
@@ -5858,10 +5985,17 @@ def main() -> int:
         f"card(s)")
     torch.cuda.empty_cache()
     fa.flash_attention_blocks.launches = 0
+    fa.flash_bwd.launches = 0
     t0 = time.perf_counter()
     cp_results, ring_row_rel, rank_launches = long_context_path(
         torch, mesh, ringattention, torch.cuda.device_count())
     grad_errs = check_flash_attention_grad(torch, fa, ringattention, dev, gen)
+    bwd_launches = fa.flash_bwd.launches
+    log(f"  flash backward launches in flash_attention's gradient check: "
+        f"{bwd_launches}")
+    if bwd_launches != 1:
+        raise RuntimeError("flash_attention's backward did not launch the "
+                           "backward kernel once")
     flash_launches = rank_launches + fa.flash_attention_blocks.launches
     log(f"  flash launches on the path: {flash_launches} ({rank_launches} "
         f"in the ranks, {fa.flash_attention_blocks.launches} in "
@@ -5905,6 +6039,8 @@ def main() -> int:
                            plain_iters=5)
     flash_long = time_flash(torch, fa, dev, gen, spec, FLASH_LONG_SHAPE,
                             plain_iters=2)
+    flash_train_bwd = time_flash_bwd(torch, fa, dev, gen, spec,
+                                     FLASH_TRAIN_SHAPE)
     ring_parts = time_ring_parts(torch, fa, ringattention, dev, gen)
     timings = {
         "card": card,
@@ -5920,6 +6056,8 @@ def main() -> int:
         "flash_attention": {"run_shape": flash_run, "long_shape": flash_long,
                             "grad_check": grad_errs,
                             "ptxas_spills": flash_spills,
+                            "bwd_train_shape": flash_train_bwd,
+                            "bwd_ptxas_spills": flash_bwd_spills,
                             "ring_call_parts": ring_parts},
         "context_parallel": [r.__dict__ for r in cp_results],
         "dcn_ready": dcn_files,
@@ -6213,6 +6351,25 @@ def main() -> int:
         "library_ms": flash_long["library_ms"],
         "library_ratio": flash_long["ms"] / flash_long["library_ms"],
         "fraction_of_bound": flash_long["fraction_of_bound"],
+    }, {
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "source": "tpu_operator_torch/csrc/flash_attention_bwd.cu",
+        "replaces": None,
+        "launches": bwd_launches,
+        "max_rel_err": bwd_rel,
+        "rtol": FLASH_BWD_RTOL,
+        "max_row_rel_err": bwd_row,
+        "row_rtol": FLASH_BWD_ROW_RTOL,
+        "shape": flash_train_bwd["shape"],
+        "ms": flash_train_bwd["ms"],
+        "plain_ms": flash_train_bwd["plain_ms"],
+        "bound_ms": flash_train_bwd["bound_ms"],
+        "bound_by": flash_train_bwd["bound_by"],
+        "library_ms": flash_train_bwd["library_ms"],
+        "library_ratio": (flash_train_bwd["ms"]
+                          / flash_train_bwd["library_ms"]),
+        "fraction_of_bound": flash_train_bwd["fraction_of_bound"],
     }]
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -227,3 +227,58 @@ class TestFlashAttention:
             np.testing.assert_allclose(
                 to_numpy(t.grad), np.asarray(want.astype(jnp.float32)),
                 **BF16_GRAD_TOL)
+
+
+class TestBackwardWrapper:
+    """``flash_bwd``: the plain version on a CPU tensor (kernel B3 is held
+    to it on the card by chip_smoke.py), and its argument checks."""
+
+    @staticmethod
+    def residuals(sq=48, sk=40, causal=True, dtype=torch.float32):
+        q, k, v = (to_torch(fold(t), "cpu").to(dtype) for t in qkv(seq=sq))
+        k, v = k[:, :sk], v[:, :sk]
+        out, m, l = fa.flash_attention_blocks(q, k, v, 0, 0, causal=causal)
+        dout = torch.from_numpy(np.random.default_rng(1).standard_normal(
+            tuple(out.shape), dtype=np.float32)).to(dtype)
+        return q, k, v, out, m, l, dout
+
+    @pytest.mark.parametrize("sq, sk, causal, dtype", [
+        (48, 40, True, torch.float32),
+        (48, 40, False, torch.float32),
+        (32, 64, True, torch.bfloat16),
+    ])
+    def test_on_cpu_is_plain_version_and_uncounted(self, sq, sk, causal,
+                                                   dtype):
+        res = self.residuals(sq, sk, causal, dtype)
+        got = fa.flash_bwd(*res, causal=causal, chunk=16)
+        want = fa.flash_bwd_reference(*res, causal=causal, chunk=16)
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype == dtype
+            assert torch.equal(a, b)
+        assert fa.flash_bwd.launches == 0
+
+    @pytest.mark.parametrize("case, match", [
+        ("device", "unsupported device"),
+        ("mixed device", "unsupported device"),
+        ("out", "shapes disagree"),
+        ("m", "shapes disagree"),
+        ("kv", "shapes disagree"),
+        ("rank", "shapes disagree"),
+    ])
+    def test_argument_checks_raise(self, case, match):
+        q, k, v, out, m, l, dout = self.residuals()
+        if case == "device":
+            q, k, v, out, m, l, dout = (t.to("meta") for t in
+                                        (q, k, v, out, m, l, dout))
+        elif case == "mixed device":
+            dout = dout.to("meta")
+        elif case == "out":
+            out = out[:, :-1]
+        elif case == "m":
+            m = m[:, None]
+        elif case == "kv":
+            v = v[:, :-1]
+        elif case == "rank":
+            q = q[None]
+        with pytest.raises(ValueError, match=match):
+            fa.flash_bwd(q, k, v, out, m, l, dout, causal=True)

@@ -1,0 +1,613 @@
+// Kernel B3: fused attention backward on [BH, S, D] bf16 with a causal
+// mask, for Hopper (sm_90a): dQ, dK, dV from q, k, v, the forward's out
+// and row statistics (m, l) and the upstream gradient dO.
+//
+// Replaces no TPU kernel. The JAX package's backward,
+// tpu_operator/workloads/flashattention.py `_flash_bwd_rule` (:169-215),
+// is jnp, and the port's plain version of it (`flash_bwd_reference`) runs
+// every query-key pair of each key chunk through device memory in f32 on
+// the CUDA cores. This kernel is added because that backward was the
+// training step's whole time.
+//
+// Bound: operations. Five products of the forward's size (S = Q.K^T
+// again, dP = dO.V^T, dV = P^T.dO, dK = dS^T.Q, dQ = dS.K), 2.5 times the
+// forward's 4*BH*S*S*D/2 causal flops (perfbench's
+// roofline.attention_bwd_flops): at BH=16, S=16384, D=128 causal that is
+// 2.75e12 flops, 2.78 ms at the H100 SXM's 989 TFLOP/s bf16, against
+// about 0.1 ms for its ~0.4 GB of inputs, outputs and dQ accumulator. Only
+// wgmma reaches that rate, so every product is a wgmma with f32
+// accumulation, and S, P, dP and dS stay on chip.
+//
+// Design (FlashAttention-2's backward, arXiv:2307.08691 Alg. 2, with
+// FlashAttention-3's Hopper pieces, arXiv:2407.08608 §3.1):
+// - three launches on the caller's stream: a preprocess that computes
+//   delta = rowsum(dO * O) in f32 and each row's log-sum-exp, in base 2,
+//   from the forward's m and l (+inf for a dead row, m <= -1e30/2 or
+//   l == 0, so each of its p is exactly 0), and zeroes the f32 dQ
+//   accumulator; the main kernel; a postprocess that writes
+//   dQ = bf16(acc * scale). The statistics and the accumulator are padded
+//   to whole 64-row tiles (lse +inf, delta 0 past Sq);
+// - main kernel: one block per (bh, 128-key tile), key tile 0 (which
+//   every query tile sees under the causal mask) first; 384 threads:
+//   consumer warpgroups 0 and 1 own 64 keys each (wgmma's M), warpgroup 2
+//   is the producer; setmaxnreg gives the consumers 240 registers and the
+//   producer 24, and the roles split once, with no __syncthreads after;
+// - the producer loads K and V once by TMA (B2's 3-D maps, boxes of
+//   [128 rows, 64 columns], 128-byte swizzle), then streams tiles of 64
+//   query rows (Q, dO, their lse and delta) through a ring of stages (2 at
+//   D=128, 4 at D=64) on mbarriers; under the causal mask it starts at the
+//   first tile whose last row sees the block's first key;
+// - per Q tile each consumer warpgroup computes S^T = K.Q^T and
+//   dP^T = V.dO^T (wgmma m64n64k16, both operands K-major from shared
+//   memory), then P^T = exp2(S^T * scale * log2e - lse) and
+//   dS^T = P^T * (dP^T - delta) in f32; the mask (causal, keys past Sk)
+//   zeroes p, and runs only on tiles that cross the diagonal or the
+//   ragged end, behind a branch the whole warpgroup takes alike;
+// - dV += P^T.dO and dK += dS^T.Q are wgmma RS: the S^T and dP^T
+//   accumulators of two adjacent 8-query column groups are the A fragment
+//   of one k16 step (B2's trick for P), rounded to bf16, and Q and dO are
+//   B MN-major from the ring. P and dS rounded to bf16 as MMA operands are
+//   the only new roundings against the f32 plain version;
+// - dS^T goes to shared memory as bf16 in the 128-byte swizzle (two
+//   buffers, one named barrier a tile between the warpgroups), and
+//   dQ_i += dS.K is wgmma m64n64k16 with A (dS) and B (K) both MN-major:
+//   warpgroup w takes columns 64w..64w+63 of dQ over all 128 keys (at D=64
+//   warpgroup 0 alone). The f32 dQ accumulator is where the blocks of one
+//   bh meet: each warp puts its 16 rows (4 KB) in shared memory in the
+//   order its lanes hold them (conflict-free 16-byte stores) and one lane
+//   adds them into the accumulator, laid out in that order, with one
+//   asynchronous bulk reduction (cp.reduce.async.bulk .add.f32), which the
+//   warp's next tile waits for only before it stages its own. Each
+//   thread's 8-byte reductions (red.global.add.v2.f32) took ~3 of 7 ms at
+//   BH=16, S=16384 on an H100 SXM; the postprocess puts the accumulator
+//   back in row order;
+// - epilogue: dK * scale and dV in bf16, rows past Sk not written. A block
+//   that sees no Q tile waits on no barrier and writes zeros.
+//
+// cuTensorMapEncodeTiled is a driver-API function; it is reached through
+// the runtime's driver entry point, so the library links no libcuda.
+// Launches on the caller's stream and does not synchronise. The C entry
+// point returns cudaGetLastError() after each launch (or
+// cudaErrorInvalidValue for a size or tensor map it cannot take), so a
+// refused launch is reported.
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "hopper.cuh"
+
+namespace {
+
+using namespace hopper;
+typedef __nv_bfloat16 bf16;
+
+constexpr int kBlockK = 128;     // keys per block
+constexpr int kBlockQ = 64;      // query rows per tile (B3_Q_TILE in Python)
+constexpr int kWgKeys = 64;      // keys per consumer warpgroup
+constexpr int kBoxCols = 64;     // bf16 columns per box: the 128-byte swizzle span
+constexpr int kKBox = kBlockK * kBoxCols * 2;   // a [128, 64] box of K or V
+constexpr int kQBox = kBlockQ * kBoxCols * 2;   // a [64, 64] box of Q or dO
+constexpr int kDsTile = kBlockK * kBlockQ * 2;  // dS^T: [128 keys, 64 queries]
+constexpr int kStatBytes = kBlockQ * 4;         // a tile's lse or delta
+constexpr int kDqTile = kBlockQ * kBoxCols * 4; // f32 dQ [64 rows, 64 columns]
+constexpr int kConsumers = 256;  // threads of the two consumer warpgroups
+constexpr int kThreads = kConsumers + 128;
+// the block starts with 168 registers a thread (65,536 / 384, rounded
+// down to 8); the 128 producer threads give up what the 256 consumer
+// threads take. An increase the pool cannot grant never returns
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+static_assert(kProducerRegs * 128 + kConsumerRegs * kConsumers <=
+              168 * kThreads, "setmaxnreg would wait forever");
+constexpr uint32_t kDsBar = 1;   // named barrier: both halves of dS^T written
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kNegInf = -1e30f;  // the forward's NEG_INF
+
+template <int D>
+struct Layout {
+  static constexpr int kBoxes = D / kBoxCols;
+  static constexpr int kKTile = kBoxes * kKBox;   // K or V
+  static constexpr int kQTile = kBoxes * kQBox;   // Q or dO
+  static constexpr int kStages = D == 64 ? 4 : 2;
+  static constexpr int kV = kKTile;               // K at 0
+  static constexpr int kDs = 2 * kKTile;          // two dS^T buffers
+  static constexpr int kRing = kDs + 2 * kDsTile; // Q, dO of each stage
+  static constexpr int kDq = kRing + kStages * 2 * kQTile;  // dQ staging
+  static constexpr int kStats = kDq + kBoxes * kDqTile;
+  static constexpr int kBars = kStats + kStages * 2 * kStatBytes;
+  // kv_full, full and empty of each stage; plus the slack that aligns the
+  // base to 1024 bytes
+  static constexpr int kSmem = 1024 + kBars + 8 * (1 + 2 * kStages);
+};
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// 2^x as one MUFU.EX2; subnormal results flush to 0, 2^-inf is 0
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <int D>
+__global__ void __launch_bounds__(256)
+flash_bwd_pre(const bf16* __restrict__ out, const bf16* __restrict__ dout,
+              const float* __restrict__ m, const float* __restrict__ l,
+              float* __restrict__ lse2, float* __restrict__ delta,
+              float* __restrict__ dq_acc, int sq, int sq_pad) {
+  constexpr int kLanes = D / 8;  // threads a row, 8 columns each
+  const int64_t row =
+      static_cast<int64_t>(blockIdx.x) * (256 / kLanes) + threadIdx.x / kLanes;
+  const int lane = threadIdx.x % kLanes;
+  const int64_t b = row / sq_pad;
+  const int r = static_cast<int>(row % sq_pad);
+  float4* acc = reinterpret_cast<float4*>(dq_acc + row * D + lane * 8);
+  acc[0] = make_float4(0.f, 0.f, 0.f, 0.f);
+  acc[1] = make_float4(0.f, 0.f, 0.f, 0.f);
+  float dot = 0.f;
+  if (r < sq) {
+    const int64_t src = (b * sq + r) * D + lane * 8;
+    const uint4 ov = *reinterpret_cast<const uint4*>(out + src);
+    const uint4 gv = *reinterpret_cast<const uint4*>(dout + src);
+    const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+    const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&gv);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 of = __bfloat1622float2(o2[i]);
+      const float2 gf = __bfloat1622float2(g2[i]);
+      dot = fmaf(of.x, gf.x, dot);
+      dot = fmaf(of.y, gf.y, dot);
+    }
+  }
+#pragma unroll
+  for (int off = kLanes / 2; off > 0; off >>= 1)
+    dot += __shfl_xor_sync(0xffffffffu, dot, off);
+  if (lane == 0) {
+    float lse = INFINITY;
+    if (r < sq) {
+      const float mr = m[b * sq + r];
+      const float lr = l[b * sq + r];
+      if (!(mr <= kNegInf / 2) && lr != 0.f) lse = fmaf(mr, kLog2e, log2f(lr));
+    }
+    lse2[row] = lse;
+    delta[row] = r < sq ? dot : 0.f;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd(const __grid_constant__ CUtensorMap q_map,
+          const __grid_constant__ CUtensorMap do_map,
+          const __grid_constant__ CUtensorMap k_map,
+          const __grid_constant__ CUtensorMap v_map,
+          const float* __restrict__ lse2, const float* __restrict__ delta,
+          float* __restrict__ dq_acc, bf16* __restrict__ dk,
+          bf16* __restrict__ dv, int sq, int sk, int causal, float scale) {
+  using L = Layout<D>;
+  constexpr int kStages = L::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  unsigned char* const gbase = smem_raw + (base - smem_u32(smem_raw));
+  const uint32_t s_k = base;
+  const uint32_t s_v = base + L::kV;
+  auto s_ds = [&](int b) { return base + L::kDs + b * kDsTile; };
+  auto s_q = [&](int st) { return base + L::kRing + st * 2 * L::kQTile; };
+  auto s_do = [&](int st) { return s_q(st) + L::kQTile; };
+  auto stat_off = [&](int st) { return L::kStats + st * 2 * kStatBytes; };
+  const uint32_t bars = base + L::kBars;
+  const uint32_t kv_full = bars;
+  auto full = [&](int st) { return bars + 8 * (1 + st); };
+  auto empty = [&](int st) { return bars + 8 * (1 + kStages + st); };
+
+  const int bh = blockIdx.x;
+  const int key0 = blockIdx.y * kBlockK;
+  const int sq_pad = (sq + kBlockQ - 1) / kBlockQ * kBlockQ;
+  // under the causal mask the first tile whose last row sees key0
+  const int i0 = causal ? key0 / kBlockQ : 0;
+  const int n_iter = sq_pad / kBlockQ > i0 ? sq_pad / kBlockQ - i0 : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), kConsumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // producer: one thread issues every load
+    regs_dec<kProducerRegs>();
+    if (threadIdx.x == kConsumers && n_iter > 0) {
+      mbar_arrive_expect_tx(kv_full, 2 * L::kKTile);
+      for (int h = 0; h < L::kBoxes; ++h) {
+        tma_load_3d(s_k + h * kKBox, &k_map, kv_full, h * kBoxCols, key0, bh);
+        tma_load_3d(s_v + h * kKBox, &v_map, kv_full, h * kBoxCols, key0, bh);
+      }
+      const int64_t stat_row = static_cast<int64_t>(bh) * sq_pad;
+      for (int n = 0; n < n_iter; ++n) {
+        const int st = n % kStages;
+        const int row = (i0 + n) * kBlockQ;
+        if (n >= kStages) mbar_wait(empty(st), (n / kStages - 1) & 1);
+        mbar_arrive_expect_tx(full(st), 2 * L::kQTile + 2 * kStatBytes);
+        for (int h = 0; h < L::kBoxes; ++h) {
+          tma_load_3d(s_q(st) + h * kQBox, &q_map, full(st), h * kBoxCols,
+                      row, bh);
+          tma_load_3d(s_do(st) + h * kQBox, &do_map, full(st), h * kBoxCols,
+                      row, bh);
+        }
+        bulk_load(base + stat_off(st), lse2 + stat_row + row, kStatBytes,
+                  full(st));
+        bulk_load(base + stat_off(st) + kStatBytes, delta + stat_row + row,
+                  kStatBytes, full(st));
+      }
+    }
+  } else {
+    // consumers: warpgroup wg owns keys key0 + 64wg .. key0 + 64wg + 63
+    regs_inc<kConsumerRegs>();
+    const int t = threadIdx.x % 128;
+    const int warp = t / 32;
+    const int g = (t % 32) / 4;
+    const int qd = t % 4;
+    const int krow = wg * kWgKeys + warp * 16 + g;  // and krow + 8, in the block
+    const float scale2 = scale * kLog2e;
+    // the same for every thread of the warpgroup
+    const bool ragged = key0 + wg * kWgKeys + kWgKeys > sk;
+
+    float dk_acc[D / 2];
+    float dv_acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+    if (n_iter > 0) mbar_wait(kv_full, 0);
+    for (int n = 0; n < n_iter; ++n) {
+      const int st = n % kStages;
+      const int q0 = (i0 + n) * kBlockQ;
+      mbar_wait(full(st), (n / kStages) & 1);
+
+      float s[32];   // S^T, then P^T
+      float dp[32];  // dP^T, then dS^T
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks) {
+        // k16 step ks: box ks / 4, 32 bytes per step within its rows
+        const uint32_t ck = (ks / 4) * kKBox + (ks % 4) * 32 + wg * kWgKeys * 128;
+        const uint32_t cq = (ks / 4) * kQBox + (ks % 4) * 32;
+        wgmma_ss_m64n64k16<0, 0>(s, sw128_desc(s_k + ck, 16, 1024),
+                                 sw128_desc(s_q(st) + cq, 16, 1024), ks > 0);
+      }
+      wgmma_commit();
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks) {
+        const uint32_t ck = (ks / 4) * kKBox + (ks % 4) * 32 + wg * kWgKeys * 128;
+        const uint32_t cq = (ks / 4) * kQBox + (ks % 4) * 32;
+        wgmma_ss_m64n64k16<0, 0>(dp, sw128_desc(s_v + ck, 16, 1024),
+                                 sw128_desc(s_do(st) + cq, 16, 1024), ks > 0);
+      }
+      wgmma_commit();
+
+      const float* lse_t =
+          reinterpret_cast<const float*>(gbase + stat_off(st));
+      const float* delta_t = lse_t + kBlockQ;
+      wgmma_wait<1>();  // S^T; dP^T may still run
+      fence_operands(s);
+      // p = 2^(s * scale * log2e - lse): query 8jj + 2qd + e of the tile
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const float2 lv =
+            *reinterpret_cast<const float2*>(lse_t + 8 * jj + 2 * qd);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          s[4 * jj + 2 * h] = exp2_ftz(fmaf(s[4 * jj + 2 * h], scale2, -lv.x));
+          s[4 * jj + 2 * h + 1] =
+              exp2_ftz(fmaf(s[4 * jj + 2 * h + 1], scale2, -lv.y));
+        }
+      }
+      // only tiles that reach past the warpgroup's first key or past sk
+      if (ragged || (causal && q0 < key0 + wg * kWgKeys + kWgKeys - 1)) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int kr = key0 + krow + 8 * h;
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int c = q0 + 8 * jj + 2 * qd + e;
+              if (kr >= sk || (causal && c < kr)) s[4 * jj + 2 * h + e] = 0.f;
+            }
+          }
+        }
+      }
+      wgmma_wait<0>();
+      fence_operands(dp);
+      // dS^T = P^T * (dP^T - delta) in f32, then P^T and dS^T in bf16 as
+      // the A fragments of the k16 steps over the tile's 64 queries
+      uint32_t pf[4][4], dsf[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int jj = 2 * kk; jj < 2 * kk + 2; ++jj) {
+          const float2 dl =
+              *reinterpret_cast<const float2*>(delta_t + 8 * jj + 2 * qd);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            dp[4 * jj + 2 * h] =
+                s[4 * jj + 2 * h] * (dp[4 * jj + 2 * h] - dl.x);
+            dp[4 * jj + 2 * h + 1] =
+                s[4 * jj + 2 * h + 1] * (dp[4 * jj + 2 * h + 1] - dl.y);
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          pf[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+          dsf[kk][r] = pack_bf16(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1]);
+        }
+      }
+      // dS^T to shared memory, row = key, 64 queries a 128-byte row, in the
+      // 128-byte swizzle (16-byte chunk c of row r at chunk c ^ (r % 8))
+      unsigned char* ds = gbase + L::kDs + (n & 1) * kDsTile;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = krow + 8 * h;
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj)
+          *reinterpret_cast<uint32_t*>(ds + r * 128 + ((jj ^ (r & 7)) << 4) +
+                                       4 * qd) = dsf[jj / 2][(jj % 2) * 2 + h];
+      }
+      fence_proxy_async();
+
+      fence_operands(dv_acc);
+      fence_operands(dk_acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        // queries 16kk..16kk+15: two 8-row atoms; the next 64 columns of
+        // dO (and Q) are the next box
+        const uint64_t bdo = sw128_desc(s_do(st) + kk * 16 * 128, kQBox, 1024);
+        if constexpr (D == 128) wgmma_rs_m64n128k16(dv_acc, pf[kk], bdo);
+        else wgmma_rs_m64n64k16(dv_acc, pf[kk], bdo);
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t bq = sw128_desc(s_q(st) + kk * 16 * 128, kQBox, 1024);
+        if constexpr (D == 128) wgmma_rs_m64n128k16(dk_acc, dsf[kk], bq);
+        else wgmma_rs_m64n64k16(dk_acc, dsf[kk], bq);
+      }
+      wgmma_commit();
+      // both warpgroups' halves of dS^T are in shared memory
+      named_sync(kDsBar, kConsumers);
+      if (wg < L::kBoxes) {
+        float dq[32];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBlockK / 16; ++kk)
+          wgmma_ss_m64n64k16<1, 1>(
+              dq, sw128_desc(s_ds(n & 1) + kk * 16 * 128, kQBox, 1024),
+              sw128_desc(s_k + wg * kKBox + kk * 16 * 128, kKBox, 1024),
+              kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_operands(dq);
+        fence_operands(dv_acc);
+        fence_operands(dk_acc);
+        fence_operands(pf);
+        fence_operands(dsf);
+        mbar_arrive(empty(st));
+        // each warp stages its 16 rows, float4 jj of lane x at [jj][x] of
+        // its 4 KB, and adds them with one bulk reduction; the warp's 4 KB
+        // is free once its last reduction has read them
+        const int lane = t % 32;
+        if (lane == 0) bulk_wait_read<0>();
+        __syncwarp();
+        const uint32_t stage = L::kDq + wg * kDqTile + warp * (kDqTile / 4);
+        float4* mine = reinterpret_cast<float4*>(gbase + stage) + lane;
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj)
+          mine[jj * 32] = make_float4(dq[4 * jj], dq[4 * jj + 1],
+                                      dq[4 * jj + 2], dq[4 * jj + 3]);
+        fence_proxy_async();
+        __syncwarp();
+        if (lane == 0) {
+          const int64_t tile =
+              (static_cast<int64_t>(bh) * (sq_pad / kBlockQ) + i0 + n) *
+                  L::kBoxes + wg;
+          bulk_reduce_add_f32(dq_acc + tile * (kDqTile / 4) + warp * 1024,
+                              base + stage, kDqTile / 4);
+          bulk_commit();
+        }
+      } else {
+        wgmma_wait<0>();
+        fence_operands(dv_acc);
+        fence_operands(dk_acc);
+        fence_operands(pf);
+        fence_operands(dsf);
+        mbar_arrive(empty(st));
+      }
+    }
+
+    // the last reductions have landed before the block's shared memory goes
+    if (wg < L::kBoxes && t % 32 == 0) bulk_wait<0>();
+    // dK * scale and dV in bf16
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int kr = key0 + krow + 8 * h;
+      if (kr >= sk) continue;
+      const int64_t off = (static_cast<int64_t>(bh) * sk + kr) * D + 2 * qd;
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i) {
+        *reinterpret_cast<uint32_t*>(dk + off + i * 8) =
+            pack_bf16(dk_acc[4 * i + 2 * h] * scale,
+                      dk_acc[4 * i + 2 * h + 1] * scale);
+        *reinterpret_cast<uint32_t*>(dv + off + i * 8) =
+            pack_bf16(dv_acc[4 * i + 2 * h], dv_acc[4 * i + 2 * h + 1]);
+      }
+    }
+  }
+}
+
+// dq = bf16(acc * scale), 8 columns a thread. The accumulator holds, for
+// each (bh, 64-row tile, 64-column box), 4096 f32 in the order the main
+// kernel's warps stage them: float4 jj of lane x of warp w at
+// [w][jj][x], with w = r / 16, x = 4 * (r % 8) + c % 8 / 2, jj = c / 8
+// and entry 2 * (r / 8 % 2) + c % 2 for row r and column c of the tile;
+// rows past sq are skipped
+template <int D>
+__global__ void __launch_bounds__(256)
+flash_bwd_post(const float* __restrict__ dq_acc, bf16* __restrict__ dq,
+               int64_t rows, int sq, int sq_pad, float scale) {
+  const int64_t idx = static_cast<int64_t>(blockIdx.x) * 256 + threadIdx.x;
+  if (idx >= rows * (D / 8)) return;
+  const int64_t row = idx / (D / 8);
+  const int cb = static_cast<int>(idx % (D / 8));  // columns 8cb..8cb+7
+  const int r = static_cast<int>(row % sq);
+  const int rr = r % kBlockQ;
+  const float* tile =
+      dq_acc + (((row / sq) * (sq_pad / kBlockQ) + r / kBlockQ) * (D / kBoxCols) +
+                cb / 8) * (kDqTile / 4);
+  const float* src = tile + ((rr / 16) * 256 + (cb % 8) * 32 + (rr % 8) * 4) * 4 +
+                     2 * (rr / 8 % 2);
+  uint32_t o[4];
+#pragma unroll
+  for (int qd = 0; qd < 4; ++qd) {
+    const float2 x = *reinterpret_cast<const float2*>(src + 4 * qd);
+    o[qd] = pack_bf16(x.x * scale, x.y * scale);
+  }
+  *reinterpret_cast<uint4*>(dq + row * D + cb * 8) =
+      make_uint4(o[0], o[1], o[2], o[3]);
+}
+
+typedef CUresult (*EncodeTiled)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// 3-D map over [bh, rows, d] bf16 (dims innermost first), boxes of
+// [1, box_rows, 64] with the 128-byte swizzle; out-of-range rows read as
+// zeros
+bool encode_map(EncodeTiled fn, CUtensorMap* map, const void* ptr,
+                int64_t bh, int64_t rows, int64_t d, int box_rows) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(bh)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d * 2),
+                                 static_cast<cuuint64_t>(rows * d * 2)};
+  const cuuint32_t box[3] = {kBoxCols, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+int launch(int64_t bh, int64_t sq, int64_t sk, cudaStream_t s, const void* q,
+           const void* k, const void* v, const bf16* out, const bf16* dout,
+           const float* m, const float* l, bf16* dq, bf16* dk, bf16* dv,
+           float* stats, float* dq_acc, int causal, float scale) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap q_map, do_map, k_map, v_map;
+  if (!encode_map(fn, &q_map, q, bh, sq, D, kBlockQ) ||
+      !encode_map(fn, &do_map, dout, bh, sq, D, kBlockQ) ||
+      !encode_map(fn, &k_map, k, bh, sk, D, kBlockK) ||
+      !encode_map(fn, &v_map, v, bh, sk, D, kBlockK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t sq_pad = (sq + kBlockQ - 1) / kBlockQ * kBlockQ;
+  float* lse2 = stats;
+  float* delta = stats + bh * sq_pad;
+
+  // bh * sq_pad is a multiple of 64, so every block is whole
+  flash_bwd_pre<D><<<static_cast<unsigned>(bh * sq_pad / (256 / (D / 8))),
+                     256, 0, s>>>(out, dout, m, l, lse2, delta, dq_acc,
+                                  static_cast<int>(sq),
+                                  static_cast<int>(sq_pad));
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  constexpr int kSmem = Layout<D>::kSmem;
+  err = cudaFuncSetAttribute(flash_bwd<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>(bh),
+                  static_cast<unsigned>((sk + kBlockK - 1) / kBlockK));
+  flash_bwd<D><<<grid, kThreads, kSmem, s>>>(
+      q_map, do_map, k_map, v_map, lse2, delta, dq_acc, dk, dv,
+      static_cast<int>(sq), static_cast<int>(sk), causal, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  const int64_t n8 = bh * sq * (D / 8);
+  flash_bwd_post<D><<<static_cast<unsigned>((n8 + 255) / 256), 256, 0, s>>>(
+      dq_acc, dq, bh * sq, static_cast<int>(sq), static_cast<int>(sq_pad),
+      scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// dq, dk, dv = the attention backward on `stream`: q, out, dout
+// [bh, sq, d], k, v [bh, sk, d] bf16, m, l [bh, sq] f32 (the forward's),
+// all contiguous and 16-byte aligned; dq, dk, dv bf16 like q, k, v.
+// Workspace: stats f32 [2, bh, sq_pad] and dq_acc f32 [bh, sq_pad, d], with
+// sq_pad = sq rounded up to a multiple of 64. d is 64 or 128. Returns a
+// cudaError_t.
+extern "C" int flash_attention_bwd_bf16(
+    const void* q, const void* k, const void* v, const void* out,
+    const void* dout, const void* m, const void* l, void* dq, void* dk,
+    void* dv, void* stats, void* dq_acc, int64_t bh, int64_t sq, int64_t sk,
+    int64_t d, int causal, float scale, void* stream) {
+  if (bh <= 0 || sq <= 0 || sk <= 0 || bh > 2147483647 ||
+      sq > 2147483647 - kBlockQ || (sk + kBlockK - 1) / kBlockK > 65535 ||
+      bh * ((sq + kBlockQ - 1) / kBlockQ) * kBlockQ / 16 > 2147483647 ||
+      bh * sq * d / 8 / 256 > 2147483647)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bf16* po = static_cast<const bf16*>(out);
+  const bf16* pg = static_cast<const bf16*>(dout);
+  const float* pm = static_cast<const float*>(m);
+  const float* pl = static_cast<const float*>(l);
+  bf16* pdq = static_cast<bf16*>(dq);
+  bf16* pdk = static_cast<bf16*>(dk);
+  bf16* pdv = static_cast<bf16*>(dv);
+  float* pst = static_cast<float*>(stats);
+  float* pacc = static_cast<float*>(dq_acc);
+  switch (d) {
+    case 64:
+      return launch<64>(bh, sq, sk, s, q, k, v, po, pg, pm, pl, pdq, pdk, pdv,
+                        pst, pacc, causal, scale);
+    case 128:
+      return launch<128>(bh, sq, sk, s, q, k, v, po, pg, pm, pl, pdq, pdk,
+                         pdv, pst, pacc, causal, scale);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}

@@ -16,7 +16,10 @@ hop it arrived on.
 ``flash_attention_blocks`` launches kernel B2 (``csrc/flash_attention.cu``)
 on a CUDA tensor and runs its plain version,
 ``flash_attention_blocks_reference``, on a CPU tensor. The plain version
-repeats the TPU kernel's arithmetic chunk by chunk, in f32.
+repeats the TPU kernel's arithmetic chunk by chunk, in f32. The backward,
+``flash_bwd``, launches kernel B3 (``csrc/flash_attention_bwd.cu``) on a
+CUDA tensor and runs its plain version, ``flash_bwd_reference`` (the JAX
+package's ``_flash_bwd_rule`` in torch ops), on a CPU tensor.
 
 Under ``torch.profiler`` each entry records a ``tpu_operator_torch.*``
 span (``backend.span``): ``flash_attention`` holds ``.fold`` (the
@@ -49,6 +52,23 @@ _SIGNATURES = {
         ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,      # bh, sq, sk
         ctypes.c_int64,                                      # d
         ctypes.c_int64, ctypes.c_int64,                      # q/k offset
+        ctypes.c_int, ctypes.c_float,                        # causal, scale
+        ctypes.c_void_p)),                                   # stream
+}
+
+# kernel B3's query tile: its row statistics and dQ accumulator are
+# padded to whole tiles (kBlockQ in csrc/flash_attention_bwd.cu)
+B3_Q_TILE = 64
+
+_BWD_SIGNATURES = {
+    "flash_attention_bwd_bf16": (ctypes.c_int, (
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # q, k, v
+        ctypes.c_void_p, ctypes.c_void_p,                    # out, dout
+        ctypes.c_void_p, ctypes.c_void_p,                    # m, l
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # dq, dk, dv
+        ctypes.c_void_p, ctypes.c_void_p,                    # stats, dq_acc
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,      # bh, sq, sk
+        ctypes.c_int64,                                      # d
         ctypes.c_int, ctypes.c_float,                        # causal, scale
         ctypes.c_void_p)),                                   # stream
 }
@@ -191,44 +211,117 @@ flash_attention_blocks.launches = 0
 # dS = P * (dP - D)), so memory stays O(S*D) end to end.
 
 
+def flash_bwd_reference(q, k, v, out, m, l, dout, causal: bool,
+                        chunk: int = 512):
+    """Plain version of kernel B3: the chunked-recompute backward of
+    ``_flash_bwd_rule``, in f32, with cotangents cast back to the input
+    dtypes."""
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    chunk = min(chunk, sk)
+    scale = 1.0 / math.sqrt(d)
+    l_safe = torch.where(l == 0.0, 1.0, l)
+    in_dtypes = (q.dtype, k.dtype, v.dtype)
+    # compute in f32 like the forward: recomputed P must match the
+    # forward's P, not a bf16 quantisation
+    q = q.float()
+    dout = dout.float()
+    out = out.float()
+    delta = (dout * out).sum(dim=-1)                           # [BH, Sq]
+    q_pos = torch.arange(sq, device=q.device)[:, None]
+    dead = (m <= NEG_INF / 2)[..., None]
+    dq = torch.zeros((bh, sq, d), dtype=torch.float32, device=q.device)
+    dk_cs, dv_cs = [], []
+    for k0 in range(0, sk, chunk):
+        ks = k[:, k0:k0 + chunk].float()
+        vs = v[:, k0:k0 + chunk].float()
+        s = torch.einsum("bqd,bkd->bqk", q, ks) * scale         # [BH,Sq,C]
+        if causal:
+            k_pos = k0 + torch.arange(ks.shape[1],
+                                      device=q.device)[None, :]
+            s = torch.where(q_pos >= k_pos, s, NEG_INF)
+        p = torch.exp(s - m[..., None]) / l_safe[..., None]
+        p = torch.where(dead, 0.0, p)
+        dv_cs.append(torch.einsum("bqk,bqd->bkd", p, dout))
+        dp = torch.einsum("bqd,bkd->bqk", dout, vs)
+        ds = p * (dp - delta[..., None])
+        dq += torch.einsum("bqk,bkd->bqd", ds, ks) * scale
+        dk_cs.append(torch.einsum("bqk,bqd->bkd", ds, q) * scale)
+    dk = torch.cat(dk_cs, dim=1)
+    dv = torch.cat(dv_cs, dim=1)
+    return tuple(t.to(dt) for t, dt in zip((dq, dk, dv), in_dtypes))
+
+
+def _check_bwd(q, k, v, out, m, l, dout) -> None:
+    named = (("q", q), ("k", k), ("v", v), ("out", out), ("m", m),
+             ("l", l), ("dout", dout))
+    for name, t in named:
+        if not isinstance(t, torch.Tensor):
+            raise ValueError(f"flash_bwd: {name} must be a tensor")
+        if t.device.type not in ("cpu", "cuda") or t.device != q.device:
+            raise ValueError(f"flash_bwd: unsupported device {t.device} "
+                             f"for {name} (q on {q.device})")
+    if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape \
+            or k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2] \
+            or out.shape != q.shape or dout.shape != q.shape \
+            or m.shape != q.shape[:2] or l.shape != q.shape[:2]:
+        raise ValueError(
+            "flash_bwd: shapes disagree: " + " ".join(
+                f"{name}{tuple(t.shape)}" for name, t in named))
+
+
 def flash_bwd(q, k, v, out, m, l, dout, causal: bool, chunk: int = 512):
-    """Chunked-recompute backward of ``_flash_bwd_rule``, in f32, with
-    cotangents cast back to the input dtypes."""
+    """dq, dk, dv of ``flash_attention_blocks(q, k, v, 0, 0, causal)`` from
+    its (out, m, l) and the upstream gradient ``dout``.
+
+    On a CUDA tensor this launches kernel B3 (and counts the call in
+    ``flash_bwd.launches``), which takes bf16 q, k, v, out and dout with D
+    in ``KERNEL_HEAD_DIMS`` and f32 m and l; ``chunk`` is the plain
+    version's step over keys, used on a CPU tensor.
+    """
     with span("flash_bwd"):
+        _check_bwd(q, k, v, out, m, l, dout)
+        if q.device.type == "cpu":
+            return flash_bwd_reference(q, k, v, out, m, l, dout, causal,
+                                       chunk)
         bh, sq, d = q.shape
         sk = k.shape[1]
-        chunk = min(chunk, sk)
-        scale = 1.0 / math.sqrt(d)
-        l_safe = torch.where(l == 0.0, 1.0, l)
-        in_dtypes = (q.dtype, k.dtype, v.dtype)
-        # compute in f32 like the forward: recomputed P must match the
-        # forward's P, not a bf16 quantisation
-        q = q.float()
-        dout = dout.float()
-        out = out.float()
-        delta = (dout * out).sum(dim=-1)                           # [BH, Sq]
-        q_pos = torch.arange(sq, device=q.device)[:, None]
-        dead = (m <= NEG_INF / 2)[..., None]
-        dq = torch.zeros((bh, sq, d), dtype=torch.float32, device=q.device)
-        dk_cs, dv_cs = [], []
-        for k0 in range(0, sk, chunk):
-            ks = k[:, k0:k0 + chunk].float()
-            vs = v[:, k0:k0 + chunk].float()
-            s = torch.einsum("bqd,bkd->bqk", q, ks) * scale         # [BH,Sq,C]
-            if causal:
-                k_pos = k0 + torch.arange(ks.shape[1],
-                                          device=q.device)[None, :]
-                s = torch.where(q_pos >= k_pos, s, NEG_INF)
-            p = torch.exp(s - m[..., None]) / l_safe[..., None]
-            p = torch.where(dead, 0.0, p)
-            dv_cs.append(torch.einsum("bqk,bqd->bkd", p, dout))
-            dp = torch.einsum("bqd,bkd->bqk", dout, vs)
-            ds = p * (dp - delta[..., None])
-            dq += torch.einsum("bqk,bkd->bqd", ds, ks) * scale
-            dk_cs.append(torch.einsum("bqk,bqd->bkd", ds, q) * scale)
-        dk = torch.cat(dk_cs, dim=1)
-        dv = torch.cat(dv_cs, dim=1)
-        return tuple(t.to(dt) for t, dt in zip((dq, dk, dv), in_dtypes))
+        if any(t.dtype != KERNEL_DTYPE for t in (q, k, v, out, dout)):
+            raise ValueError(f"flash_bwd: the kernel takes {KERNEL_DTYPE} "
+                             f"q, k, v, out and dout on the card, got "
+                             f"{[t.dtype for t in (q, k, v, out, dout)]}")
+        if m.dtype != torch.float32 or l.dtype != torch.float32:
+            raise ValueError("flash_bwd: m and l must be float32")
+        if d not in KERNEL_HEAD_DIMS:
+            raise ValueError(f"flash_bwd: head dim {d} not in "
+                             f"{KERNEL_HEAD_DIMS}")
+        q, k, v, out, dout = (_aligned(t) for t in (q, k, v, out, dout))
+        m, l = m.contiguous(), l.contiguous()
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        if bh == 0 or sq == 0 or sk == 0:
+            return dq.zero_(), dk.zero_(), dv.zero_()
+        sq_pad = -(-sq // B3_Q_TILE) * B3_Q_TILE
+        stats = torch.empty((2, bh, sq_pad), dtype=torch.float32,
+                            device=q.device)
+        dq_acc = torch.empty((bh, sq_pad, d), dtype=torch.float32,
+                             device=q.device)
+        lib = build.load("flash_attention_bwd", _BWD_SIGNATURES)
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            err = lib.flash_attention_bwd_bf16(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                dout.data_ptr(), m.data_ptr(), l.data_ptr(), dq.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
+                dq_acc.data_ptr(), bh, sq, sk, d, 1 if causal else 0,
+                1.0 / math.sqrt(d), stream)
+        if err != 0:
+            raise RuntimeError(f"flash attention backward kernel launch "
+                               f"failed: cudaError {err}")
+        flash_bwd.launches += 1
+        return dq, dk, dv
+
+
+flash_bwd.launches = 0
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -249,8 +342,8 @@ class _FlashAttention(torch.autograd.Function):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
     """Single-device flash attention, [B, S, H, D] layout (the drop-in for
-    ``reference_attention``). Differentiable: the backward pass is the
-    chunked recomputation of ``flash_bwd``."""
+    ``reference_attention``). Differentiable: the backward pass is
+    ``flash_bwd`` (kernel B3 on the card)."""
     with span("flash_attention"):
         B, S, H, D = q.shape
         fold = lambda t: t.transpose(1, 2).reshape(B * H, -1, D)
