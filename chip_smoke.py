@@ -286,6 +286,10 @@ FLASH_BWD_RTOL = 2.0 ** -7
 FLASH_BWD_ROW_RTOL = 2.0 ** -6
 # the training cell's shape: forward and backward of [1, 16384, 16, 128]
 FLASH_TRAIN_SHAPE = (1, 16384, 16, 128)
+# Trinity-Mini's attention period (attn.trinity-train-16k): [1, 16384, 32,
+# 128] over 4 KV heads, three layers under a window of 2048 keys, one full
+FLASH_LAYERS_SHAPE = (1, 16384, 32, 128)
+FLASH_LAYERS_GROUP, FLASH_LAYERS_WINDOW = 8, 2048
 
 
 # the burn-in: TP and FSDP losses of one step on one batch agree within
@@ -369,35 +373,65 @@ def check_triad(torch, hbm_probe, dev, gen, shape, offset: int) -> float:
     return err
 
 
+# a flash kernel's instantiations: head width, and whether it is the band
+# variant (grouped KV heads, a sliding window) or the MHA one
+FLASH_INSTANTIATIONS = ("64", "128", "64.band", "128.band")
+# registers a thread that ptxas reports for the MHA instantiations of B2
+# and B3: a block of 384 threads, one a multiprocessor, starts with 65536
+# / 384 rounded down to a multiple of 8, and setmaxnreg moves them between
+# the producer and the consumers. The band variant must leave them so: a
+# higher figure means a launch bound changed, and either spills or
+# serialises the wgmma where the budget is spent
+FLASH_MHA_REGISTERS = 168
+
+
 def check_flash_build(log_text: str, kernel: str = "flash_fwd") -> dict:
     """ptxas's report of a flash kernel (``flash_fwd``, B2, or
-    ``flash_bwd``, B3): bytes spilled (stores, loads) per instantiation,
-    by head width. Fails unless both widths are there with nothing
-    spilled, where ptxas ignored setmaxnreg (C7508) or where it
-    serialised the wgmma for want of registers (C7512)."""
-    spills, width = {}, None
+    ``flash_bwd``, B3): bytes spilled (stores, loads) and registers a
+    thread per instantiation, keyed by head width and ``.band`` for the
+    band variant. Fails unless all four are there with nothing spilled
+    and the MHA ones at ``FLASH_MHA_REGISTERS``, where ptxas ignored
+    setmaxnreg (C7508) or where it serialised the wgmma for want of
+    registers (C7512)."""
+    spills, regs, name, last = {}, {}, None, None
     for line in log_text.splitlines():
-        if "Function properties for" in line:
-            found = re.search(kernel + r"ILi(\d+)E", line)
-            width = int(found.group(1)) if found else None
-        elif width is not None and "spill stores" in line:
-            spills[width] = tuple(int(n) for n in re.findall(
+        if "Function properties for" in line or "Compiling entry" in line:
+            found = re.search(kernel + r"ILi(\d+)ELb([01])E", line)
+            name = (found.group(1) + (".band" if found.group(2) == "1"
+                                      else "")) if found else None
+        elif name is not None and "spill stores" in line:
+            spills[name] = tuple(int(n) for n in re.findall(
                 r"(\d+) bytes spill (?:stores|loads)", line))
-            width = None
-    log(f"  {kernel} spills (stores, loads) by head width: {spills}")
+            last, name = name, None
+        elif last is not None and "Used" in line and "registers" in line:
+            found = re.search(r"Used (\d+) registers", line)
+            if found:
+                regs[last] = int(found.group(1))
+            last = None
+    log(f"  {kernel} spills (stores, loads) by instantiation: {spills}; "
+        f"registers a thread: {regs}")
     if "C7508" in log_text or "setmaxnreg ignored" in log_text:
         raise RuntimeError(f"ptxas ignored setmaxnreg in {kernel}")
     if "C7512" in log_text:
         raise RuntimeError(f"ptxas serialised the wgmma of {kernel}")
-    if sorted(spills) != [64, 128] or any(any(v) for v in spills.values()):
+    if sorted(spills) != sorted(FLASH_INSTANTIATIONS) \
+            or any(any(v) for v in spills.values()):
         raise RuntimeError(f"{kernel} spills or lacks an instantiation: "
                            f"{spills}")
-    return spills
+    moved = {k: regs.get(k) for k in FLASH_INSTANTIATIONS
+             if "band" not in k and regs.get(k) != FLASH_MHA_REGISTERS}
+    if moved:
+        raise RuntimeError(f"{kernel}'s MHA registers a thread moved from "
+                           f"{FLASH_MHA_REGISTERS}: {moved}")
+    return {k: {"spills": spills[k], "registers": regs.get(k)}
+            for k in FLASH_INSTANTIATIONS}
 
 
-def flash_inputs(torch, dev, gen, bh, sq, sk, d):
-    return tuple(torch.randn((bh, s, d), generator=gen, device=dev)
-                 .to(torch.bfloat16) for s in (sq, sk, sk))
+def flash_inputs(torch, dev, gen, bh, sq, sk, d, group=1):
+    """q [bh, sq, d] and k, v [bh / group, sk, d], bf16."""
+    return tuple(torch.randn((n, s, d), generator=gen, device=dev)
+                 .to(torch.bfloat16)
+                 for n, s in ((bh, sq), (bh // group, sk), (bh // group, sk)))
 
 
 def out_errors(ra, o, ro) -> dict:
@@ -424,14 +458,18 @@ def require_flash_close(label, errs) -> None:
 
 
 def check_flash(torch, fa, ra, dev, gen, label, bh, sq, sk, d, q_offset=0,
-                k_offset=0, causal=True, dead_rows=0) -> dict:
+                k_offset=0, causal=True, dead_rows=0, group=1,
+                window=None) -> dict:
     """Kernel vs plain version on seeded bf16 inputs; returns the errors.
     The first ``dead_rows`` rows see no key: there out == 0, l == 0 and
-    m == -1e30 exactly."""
-    q, k, v = flash_inputs(torch, dev, gen, bh, sq, sk, d)
-    o, m, l = fa.flash_attention_blocks(q, k, v, q_offset, k_offset, causal)
+    m == -1e30 exactly. ``group`` query rows share each K/V row, and
+    ``window`` is the sliding window's keys."""
+    q, k, v = flash_inputs(torch, dev, gen, bh, sq, sk, d, group)
+    o, m, l = fa.flash_attention_blocks(q, k, v, q_offset, k_offset, causal,
+                                        window=window)
     ro, rm, rl = fa.flash_attention_blocks_reference(
-        q, k, v, q_offset, k_offset, causal, q_tile=4096)
+        q, k, v, q_offset, k_offset, causal, q_tile=4096 // group,
+        window=window)
     torch.cuda.synchronize()
     if dead_rows:
         exact = (bool((o[:, :dead_rows] == 0).all())
@@ -448,7 +486,8 @@ def check_flash(torch, fa, ra, dev, gen, label, bh, sq, sk, d, q_offset=0,
                 l_rel=((l - rl).abs()[live] / rl[live]).max().item()
                 if bool(live.any()) else (l - rl).abs().max().item())
     require_flash_close(f"{label} [{bh}, {sq}|{sk}, {d}] offsets="
-                        f"({q_offset}, {k_offset}) causal={causal}", errs)
+                        f"({q_offset}, {k_offset}) causal={causal} group="
+                        f"{group} window={window}", errs)
     return errs
 
 
@@ -519,6 +558,89 @@ def check_flash_attention_grad(torch, fa, ra, dev, gen) -> dict:
     return errs
 
 
+def check_flash_attention_layers(torch, fa, ra, dev, gen,
+                                 shape=FLASH_LAYERS_SHAPE,
+                                 group=FLASH_LAYERS_GROUP,
+                                 window=FLASH_LAYERS_WINDOW) -> dict:
+    """``flash_attention`` forward and backward at Trinity-Mini's widths
+    (q [B, S, H, D], k and v over H / group KV heads), under its window
+    and with none, on the same inputs folded by hand: out against the
+    forward's plain version, the gradients against the backward's plain
+    version on B2's residuals. Each call must make one B2 and one B3
+    launch, both counted
+    as grouped, and as windowed where the window is set: the fold of k
+    and v by their own head count and the window's way through autograd,
+    on the card."""
+    B, S, H, D = shape
+    hkv = H // group
+    q, dout = (torch.randn((B, S, H, D), generator=gen, device=dev)
+               .to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((B, S, hkv, D), generator=gen, device=dev)
+            .to(torch.bfloat16) for _ in range(2))
+    fold = lambda t: t.transpose(1, 2).reshape(B * t.shape[2], S, D)
+    entries = (fa.flash_attention_blocks, fa.flash_bwd)
+    names = ("launches", "window_calls", "grouped_calls")
+    out = {}
+    for label, w in (("window", window), ("full", None)):
+        xs = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        for fn in entries:
+            for name in names:
+                setattr(fn, name, 0)
+        o = fa.flash_attention(*xs, causal=True, window=w)
+        o.backward(dout)
+        counts = {f"{fn.__name__}.{name}": getattr(fn, name)
+                  for fn in entries for name in names}
+        # (the CPU path, for a rehearsal, counts no launch)
+        want = {f"{fn.__name__}.{name}": int(
+            (name != "window_calls" or w is not None)
+            and (name != "launches" or dev.type == "cuda"))
+                for fn in entries for name in names}
+        qf, kf, vf, gf = fold(q), fold(k), fold(v), fold(dout)
+        ro, rm, rl = fa.flash_attention_blocks_reference(
+            qf, kf, vf, 0, 0, True, q_tile=4096 // group, window=w)
+        # the backward's plain version on B2's own residuals, as
+        # check_flash_bwd holds B3: dq's first rows are differences of
+        # near-equal terms, which out's bf16 rounding moves (logged below
+        # against the plain forward's residuals)
+        bo, bm, bl = fa.flash_attention_blocks(qf, kf, vf, 0, 0, True,
+                                               window=w)
+        grads = fa.flash_bwd_reference(qf, kf, vf, bo, bm, bl, gf, True,
+                                       chunk=128, window=w)
+        plain_dq = fa.flash_bwd_reference(qf, kf, vf, ro, rm, rl, gf, True,
+                                          chunk=128, window=w)[0]
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        errs = out_errors(ra, fold(o.detach()), ro)
+        dq, pdq = (t.float().reshape(-1, D) for t in (fold(xs[0].grad),
+                                                       plain_dq))
+        n = pdq.norm(dim=-1)
+        rows = (dq - pdq).norm(dim=-1) / torch.clamp(n, min=float(n.median()))
+        errs["dq_row_vs_plain_fwd"] = rows.max().item()
+        errs["dq_row_vs_plain_fwd_at"] = int(rows.argmax()) % S
+        ok = errs["out"] <= FLASH_OUT_TOL and errs["out_row_rel"] <= \
+            FLASH_OUT_ROW_RTOL and counts == want
+        for name, x, r in zip(("dq", "dk", "dv"), xs, grads):
+            e = grad_errors(torch, fold(x.grad), r)
+            errs[f"{name}_rel"], errs[f"{name}_row"] = e["rel"], e["row"]
+            ok = ok and x.grad.dtype == torch.bfloat16 \
+                and x.grad.shape == x.shape \
+                and e["rel"] <= FLASH_BWD_RTOL \
+                and e["row"] <= FLASH_BWD_ROW_RTOL
+        log(f"  flash_attention {list(shape)} over {hkv} KV heads, "
+            f"window={w}: {errs}, counters {counts} (out {FLASH_OUT_TOL} "
+            f"abs and {FLASH_OUT_ROW_RTOL} a row; grads "
+            f"{FLASH_BWD_RTOL} the tensor, {FLASH_BWD_ROW_RTOL} a row; "
+            f"counters {want})")
+        if not ok:
+            raise RuntimeError(f"flash_attention at {list(shape)} over {hkv} "
+                               f"KV heads, window={w}, disagrees with the "
+                               f"plain versions or left the band path: "
+                               f"{errs}, {counts}")
+        out[label] = dict(errs, counters=counts)
+        del xs, o, ro, rm, rl, bo, bm, bl, grads, plain_dq, dq, pdq, rows
+    return out
+
+
 def grad_errors(torch, x, r) -> dict:
     """The whole tensor's relative error and its worst row's, against the
     larger of the row's norm and the median row's."""
@@ -533,21 +655,25 @@ def grad_errors(torch, x, r) -> dict:
 
 
 def check_flash_bwd(torch, fa, dev, gen, label, bh, sq, sk, d, causal=True,
-                    dead_rows=0) -> dict:
+                    dead_rows=0, group=1, window=None) -> dict:
     """Kernel B3 vs its plain version on seeded bf16 inputs and B2's
     residuals; returns the errors of dq, dk, dv. The first ``dead_rows``
     rows are made rows that see no key (out 0, m -1e30, l 0), as B2 leaves
-    them: their dq must be exactly 0."""
-    q, k, v = flash_inputs(torch, dev, gen, bh, sq, sk, d)
+    them: their dq must be exactly 0. ``group`` and ``window`` as
+    ``check_flash``'s."""
+    q, k, v = flash_inputs(torch, dev, gen, bh, sq, sk, d, group)
     dout = torch.randn((bh, sq, d), generator=gen, device=dev).to(
         torch.bfloat16)
-    out, m, l = fa.flash_attention_blocks(q, k, v, 0, 0, causal)
+    out, m, l = fa.flash_attention_blocks(q, k, v, 0, 0, causal,
+                                          window=window)
     if dead_rows:
         out[:, :dead_rows] = 0
         m[:, :dead_rows] = fa.NEG_INF
         l[:, :dead_rows] = 0
-    got = fa.flash_bwd(q, k, v, out, m, l, dout, causal)
-    want = fa.flash_bwd_reference(q, k, v, out, m, l, dout, causal)
+    got = fa.flash_bwd(q, k, v, out, m, l, dout, causal, window=window)
+    want = fa.flash_bwd_reference(q, k, v, out, m, l, dout, causal,
+                                  chunk=512 if group * sq <= 65536 else 128,
+                                  window=window)
     torch.cuda.synchronize()
     errs = {}
     for name, x, r in zip(("dq", "dk", "dv"), got, want):
@@ -559,7 +685,8 @@ def check_flash_bwd(torch, fa, dev, gen, label, bh, sq, sk, d, causal=True,
     if dead_rows:
         errs["dead_dq_zero"] = bool((got[0][:, :dead_rows] == 0).all())
         ok = ok and errs["dead_dq_zero"]
-    log(f"  flash_bwd {label} [{bh}, {sq}|{sk}, {d}] causal={causal}: "
+    log(f"  flash_bwd {label} [{bh}, {sq}|{sk}, {d}] causal={causal} "
+        f"group={group} window={window}: "
         f"{errs} (tolerances {FLASH_BWD_RTOL} the tensor, "
         f"{FLASH_BWD_ROW_RTOL} a row)")
     if not ok:
@@ -675,6 +802,51 @@ def time_flash_bwd(torch, fa, dev, gen, spec, shape) -> dict:
             "library_ms": library_ms, "bound_ms": bound_ms,
             "bound_by": "operations", "fraction_of_bound": bound_ms / ms,
             "tflops": flops / (ms * 1e-3) / 1e12}
+
+
+def time_flash_layers(torch, fa, dev, gen, spec) -> dict:
+    """Kernels B2 and B3 (band instantiations) at Trinity-Mini's window
+    and full layers ([1, 16384, 32, 128] over 4 KV heads), each against
+    its bound (``perfbench/roofline_layers.py``); SDPA's forward and
+    backward on K/V repeated per group for the full layer (a window
+    needs a dense mask there, so it is not timed)."""
+    from perfbench import roofline, roofline_layers
+
+    B, S, H, D = FLASH_LAYERS_SHAPE
+    bh, g = B * H, FLASH_LAYERS_GROUP
+    peak = roofline.Peak(bf16_flops=spec.peak_bf16_tflops * 1e12,
+                         hbm_bytes_s=spec.hbm_bw_gbps * 1e9,
+                         nvlink_bytes_s=0.0)
+    q, k, v = flash_inputs(torch, dev, gen, bh, S, S, D, g)
+    dout = torch.randn((bh, S, D), generator=gen, device=dev).to(
+        torch.bfloat16)
+    out = {}
+    for name, w in (("window", FLASH_LAYERS_WINDOW), ("full", None)):
+        o, m, l = fa.flash_attention_blocks(q, k, v, 0, 0, True, window=w)
+        fwd_ms = min(cuda_ms(torch, lambda: fa.flash_attention_blocks(
+            q, k, v, 0, 0, True, window=w)) for _ in range(2))
+        bwd_ms = min(cuda_ms(torch, lambda: fa.flash_bwd(
+            q, k, v, o, m, l, dout, True, window=w)) for _ in range(2))
+        fb, fby = roofline_layers.layer_fwd_bound(peak, bh, bh // g, S, D, w)
+        bb, bby = roofline_layers.layer_bwd_bound(peak, bh, bh // g, S, D, w)
+        out[name] = {"window": w, "fwd_ms": fwd_ms, "bwd_ms": bwd_ms,
+                     "fwd_bound_ms": fb * 1e3, "fwd_bound_by": fby,
+                     "bwd_bound_ms": bb * 1e3, "bwd_bound_by": bby,
+                     "fwd_fraction_of_bound": fb * 1e3 / fwd_ms,
+                     "bwd_fraction_of_bound": bb * 1e3 / bwd_ms}
+        del o, m, l
+    q4, k4, v4 = (t[None].detach().requires_grad_() for t in (
+        q, k.repeat_interleave(g, 0), v.repeat_interleave(g, 0)))
+    sdpa = torch.nn.functional.scaled_dot_product_attention(q4, k4, v4,
+                                                            is_causal=True)
+    out["full"]["library_fwd_ms"] = cuda_ms(
+        torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True))
+    out["full"]["library_bwd_ms"] = cuda_ms(torch, lambda: torch.autograd.grad(
+        sdpa, (q4, k4, v4), dout[None], retain_graph=True))
+    log(f"  flash layers at {list(FLASH_LAYERS_SHAPE)} over {bh // g} KV "
+        f"heads: {out}")
+    return {"shape": list(FLASH_LAYERS_SHAPE), "group": g, **out}
 
 
 def time_ring_parts(torch, fa, ra, dev, gen) -> dict:
@@ -5903,6 +6075,8 @@ def main() -> int:
                     check_triad(torch, hbm_probe, dev, gen, TRIAD_SHAPE, 1))
     B, S, H, D = FLASH_RUN_SHAPE
     LB, LS, LH, LD = FLASH_LONG_SHAPE
+    NB, NS, NH, ND = FLASH_LAYERS_SHAPE
+    NG, NW = FLASH_LAYERS_GROUP, FLASH_LAYERS_WINDOW
     ra = ringattention
     flash_errs = [
         check_flash(torch, fa, ra, dev, gen, "run() shape", B * H, S, S, D),
@@ -5924,7 +6098,21 @@ def main() -> int:
                     q_offset=1700, k_offset=1760, dead_rows=60),
         check_flash(torch, fa, ra, dev, gen, "non-causal", 8, 4096, 4096,
                     128, causal=False),
-        check_flash_merge(torch, fa, ra, dev, gen, FLASH_RUN_SHAPE)]
+        check_flash_merge(torch, fa, ra, dev, gen, FLASH_RUN_SHAPE),
+        # grouped KV heads and windows: B2's band instantiations
+        check_flash(torch, fa, ra, dev, gen, "Trinity window layer",
+                    NB * NH, NS, NS, ND, group=NG, window=NW),
+        check_flash(torch, fa, ra, dev, gen, "Trinity full layer", NB * NH,
+                    NS, NS, ND, group=NG),
+        check_flash(torch, fa, ra, dev, gen, "window, ragged", 8, 1000,
+                    1000, 128, group=4, window=300),
+        check_flash(torch, fa, ra, dev, gen, "window of one key", 8, 1000,
+                    1000, 64, group=2, window=1),
+        check_flash(torch, fa, ra, dev, gen, "window, ring hop", 8, 1000,
+                    600, 128, q_offset=2000, k_offset=1700, group=2,
+                    window=500),
+        check_flash(torch, fa, ra, dev, gen, "window past S", 8, 4160, 4160,
+                    64, group=8, window=20000)]
     flash_err = max(e["out"] for e in flash_errs)
     flash_row_rel = max(e["out_row_rel"] for e in flash_errs)
     check_flash_future_block(torch, fa, dev, gen, B * H, S, D)
@@ -5940,7 +6128,22 @@ def main() -> int:
                         128, causal=False),
         check_flash_bwd(torch, fa, dev, gen, "run() shape", B * H, S, S, D),
         check_flash_bwd(torch, fa, dev, gen, "dead rows", 8, 1000, 1000,
-                        128, dead_rows=60)]
+                        128, dead_rows=60),
+        # grouped KV heads and windows: B3's band instantiations
+        check_flash_bwd(torch, fa, dev, gen, "Trinity window layer",
+                        NB * NH, NS, NS, ND, group=NG, window=NW),
+        check_flash_bwd(torch, fa, dev, gen, "Trinity full layer", NB * NH,
+                        NS, NS, ND, group=NG),
+        check_flash_bwd(torch, fa, dev, gen, "window, ragged", 8, 1000, 1000,
+                        128, group=4, window=300),
+        check_flash_bwd(torch, fa, dev, gen, "window, ragged", 8, 300, 260,
+                        64, group=2, window=77),
+        # (a window of one key leaves dS = P(dP - rowsum(dO O)) = 0 but
+        # for rounding, which no relative error can judge)
+        check_flash_bwd(torch, fa, dev, gen, "window of two keys", 8, 1000,
+                        1000, 128, group=8, window=2),
+        check_flash_bwd(torch, fa, dev, gen, "window past S", 8, 4160, 4160,
+                        128, group=2, window=20000)]
     bwd_rel = max(e[f"{n}_rel"] for e in bwd_errs for n in ("dq", "dk", "dv"))
     bwd_row = max(e[f"{n}_row"] for e in bwd_errs for n in ("dq", "dk", "dv"))
 
@@ -6003,6 +6206,9 @@ def main() -> int:
     if rank_launches == 0 or fa.flash_attention_blocks.launches == 0:
         raise RuntimeError("the long-context path did not launch the flash "
                            "kernel")
+    # the grouped, windowed entry: one B2 and one B3 launch a call
+    layers_grad = check_flash_attention_layers(torch, fa, ringattention, dev,
+                                               gen)
 
     # 7. timings
     log("# phase 7: timings")
@@ -6041,6 +6247,7 @@ def main() -> int:
                             plain_iters=2)
     flash_train_bwd = time_flash_bwd(torch, fa, dev, gen, spec,
                                      FLASH_TRAIN_SHAPE)
+    flash_layers = time_flash_layers(torch, fa, dev, gen, spec)
     ring_parts = time_ring_parts(torch, fa, ringattention, dev, gen)
     timings = {
         "card": card,
@@ -6055,9 +6262,11 @@ def main() -> int:
                    "utilization": mm.utilization},
         "flash_attention": {"run_shape": flash_run, "long_shape": flash_long,
                             "grad_check": grad_errs,
+                            "layers_grad_check": layers_grad,
                             "ptxas_spills": flash_spills,
                             "bwd_train_shape": flash_train_bwd,
                             "bwd_ptxas_spills": flash_bwd_spills,
+                            "layers": flash_layers,
                             "ring_call_parts": ring_parts},
         "context_parallel": [r.__dict__ for r in cp_results],
         "dcn_ready": dcn_files,

@@ -62,7 +62,17 @@
 //   BH=16, S=16384 on an H100 SXM; the postprocess puts the accumulator
 //   back in row order;
 // - epilogue: dK * scale and dV in bf16, rows past Sk not written. A block
-//   that sees no Q tile waits on no barrier and writes zeros.
+//   that sees no Q tile waits on no barrier and writes zeros;
+// - grouped KV heads and a sliding window (the kBand instantiations): one
+//   block per (K/V row, 128-key tile) streams the Q tiles of each of its
+//   group's query rows in turn through the same ring, so dK and dV sum
+//   over the group in registers, with no atomics and no expanded buffer
+//   (FlashAttention-2/3's grouped-query backward); dQ keeps its per-row
+//   f32 accumulator and bulk reductions. Under a window of W keys a key
+//   tile streams only the Q tiles up to the last query that sees its last
+//   key, and the mask also runs on tiles that reach past the warpgroup's
+//   first key's window. The MHA instantiations keep group 1 and no window
+//   at compile time.
 //
 // cuTensorMapEncodeTiled is a driver-API function; it is reached through
 // the runtime's driver entry point, so the library links no libcuda.
@@ -180,7 +190,12 @@ flash_bwd_pre(const bf16* __restrict__ out, const bf16* __restrict__ dout,
   }
 }
 
-template <int D>
+// kBand: grouped KV heads (the block of K/V row bh_kv streams the tiles of
+// query rows bh_kv * group .. bh_kv * group + group - 1 in turn, and dK
+// and dV sum over them in registers) and a sliding window of `window`
+// keys (0: none). The instantiations without it are the MHA kernel as it
+// was, with group 1 and no window
+template <int D, bool kBand>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd(const __grid_constant__ CUtensorMap q_map,
           const __grid_constant__ CUtensorMap do_map,
@@ -188,7 +203,8 @@ flash_bwd(const __grid_constant__ CUtensorMap q_map,
           const __grid_constant__ CUtensorMap v_map,
           const float* __restrict__ lse2, const float* __restrict__ delta,
           float* __restrict__ dq_acc, bf16* __restrict__ dk,
-          bf16* __restrict__ dv, int sq, int sk, int causal, float scale) {
+          bf16* __restrict__ dv, int sq, int sk, int causal, float scale,
+          int group, int window) {
   using L = Layout<D>;
   constexpr int kStages = L::kStages;
   extern __shared__ unsigned char smem_raw[];
@@ -205,12 +221,21 @@ flash_bwd(const __grid_constant__ CUtensorMap q_map,
   auto full = [&](int st) { return bars + 8 * (1 + st); };
   auto empty = [&](int st) { return bars + 8 * (1 + kStages + st); };
 
-  const int bh = blockIdx.x;
+  const int bh_kv = blockIdx.x;
+  const int heads = kBand ? group : 1;  // query rows a K/V row serves
   const int key0 = blockIdx.y * kBlockK;
   const int sq_pad = (sq + kBlockQ - 1) / kBlockQ * kBlockQ;
-  // under the causal mask the first tile whose last row sees key0
+  // under the causal mask the first tile whose last row sees key0; under
+  // a window the tiles end at the last query that sees the block's last
+  // key
   const int i0 = causal ? key0 / kBlockQ : 0;
-  const int n_iter = sq_pad / kBlockQ > i0 ? sq_pad / kBlockQ - i0 : 0;
+  int i1 = sq_pad / kBlockQ;
+  if (kBand && window > 0) {
+    const int64_t reach =
+        (static_cast<int64_t>(key0) + kBlockK + window - 2) / kBlockQ + 1;
+    if (reach < i1) i1 = static_cast<int>(reach);
+  }
+  const int n_iter = i1 > i0 ? i1 - i0 : 0;
 
   if (threadIdx.x == 0) {
     mbar_init(kv_full, 1);
@@ -229,25 +254,31 @@ flash_bwd(const __grid_constant__ CUtensorMap q_map,
     if (threadIdx.x == kConsumers && n_iter > 0) {
       mbar_arrive_expect_tx(kv_full, 2 * L::kKTile);
       for (int h = 0; h < L::kBoxes; ++h) {
-        tma_load_3d(s_k + h * kKBox, &k_map, kv_full, h * kBoxCols, key0, bh);
-        tma_load_3d(s_v + h * kKBox, &v_map, kv_full, h * kBoxCols, key0, bh);
+        tma_load_3d(s_k + h * kKBox, &k_map, kv_full, h * kBoxCols, key0,
+                    bh_kv);
+        tma_load_3d(s_v + h * kKBox, &v_map, kv_full, h * kBoxCols, key0,
+                    bh_kv);
       }
-      const int64_t stat_row = static_cast<int64_t>(bh) * sq_pad;
-      for (int n = 0; n < n_iter; ++n) {
-        const int st = n % kStages;
-        const int row = (i0 + n) * kBlockQ;
-        if (n >= kStages) mbar_wait(empty(st), (n / kStages - 1) & 1);
-        mbar_arrive_expect_tx(full(st), 2 * L::kQTile + 2 * kStatBytes);
-        for (int h = 0; h < L::kBoxes; ++h) {
-          tma_load_3d(s_q(st) + h * kQBox, &q_map, full(st), h * kBoxCols,
-                      row, bh);
-          tma_load_3d(s_do(st) + h * kQBox, &do_map, full(st), h * kBoxCols,
-                      row, bh);
+      for (int hq = 0; hq < heads; ++hq) {
+        const int bh = bh_kv * heads + hq;
+        const int64_t stat_row = static_cast<int64_t>(bh) * sq_pad;
+        for (int n = 0; n < n_iter; ++n) {
+          const int it = hq * n_iter + n;  // the ring's count
+          const int st = it % kStages;
+          const int row = (i0 + n) * kBlockQ;
+          if (it >= kStages) mbar_wait(empty(st), (it / kStages - 1) & 1);
+          mbar_arrive_expect_tx(full(st), 2 * L::kQTile + 2 * kStatBytes);
+          for (int h = 0; h < L::kBoxes; ++h) {
+            tma_load_3d(s_q(st) + h * kQBox, &q_map, full(st), h * kBoxCols,
+                        row, bh);
+            tma_load_3d(s_do(st) + h * kQBox, &do_map, full(st),
+                        h * kBoxCols, row, bh);
+          }
+          bulk_load(base + stat_off(st), lse2 + stat_row + row, kStatBytes,
+                    full(st));
+          bulk_load(base + stat_off(st) + kStatBytes, delta + stat_row + row,
+                    kStatBytes, full(st));
         }
-        bulk_load(base + stat_off(st), lse2 + stat_row + row, kStatBytes,
-                  full(st));
-        bulk_load(base + stat_off(st) + kStatBytes, delta + stat_row + row,
-                  kStatBytes, full(st));
       }
     }
   } else {
@@ -268,168 +299,178 @@ flash_bwd(const __grid_constant__ CUtensorMap q_map,
     for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
 
     if (n_iter > 0) mbar_wait(kv_full, 0);
-    for (int n = 0; n < n_iter; ++n) {
-      const int st = n % kStages;
-      const int q0 = (i0 + n) * kBlockQ;
-      mbar_wait(full(st), (n / kStages) & 1);
+    for (int hq = 0; hq < heads; ++hq) {
+      // query row blockIdx.x * heads + hq, read again from blockIdx where
+      // it is used (a register held for it spilled at D=128)
+      for (int n = 0; n < n_iter; ++n) {
+        const int it = hq * n_iter + n;  // the ring's count
+        const int st = it % kStages;
+        const int q0 = (i0 + n) * kBlockQ;
+        mbar_wait(full(st), (it / kStages) & 1);
 
-      float s[32];   // S^T, then P^T
-      float dp[32];  // dP^T, then dS^T
-      wgmma_fence();
+        float s[32];   // S^T, then P^T
+        float dp[32];  // dP^T, then dS^T
+        wgmma_fence();
 #pragma unroll
-      for (int ks = 0; ks < D / 16; ++ks) {
-        // k16 step ks: box ks / 4, 32 bytes per step within its rows
-        const uint32_t ck = (ks / 4) * kKBox + (ks % 4) * 32 + wg * kWgKeys * 128;
-        const uint32_t cq = (ks / 4) * kQBox + (ks % 4) * 32;
-        wgmma_ss_m64n64k16<0, 0>(s, sw128_desc(s_k + ck, 16, 1024),
-                                 sw128_desc(s_q(st) + cq, 16, 1024), ks > 0);
-      }
-      wgmma_commit();
-#pragma unroll
-      for (int ks = 0; ks < D / 16; ++ks) {
-        const uint32_t ck = (ks / 4) * kKBox + (ks % 4) * 32 + wg * kWgKeys * 128;
-        const uint32_t cq = (ks / 4) * kQBox + (ks % 4) * 32;
-        wgmma_ss_m64n64k16<0, 0>(dp, sw128_desc(s_v + ck, 16, 1024),
-                                 sw128_desc(s_do(st) + cq, 16, 1024), ks > 0);
-      }
-      wgmma_commit();
-
-      const float* lse_t =
-          reinterpret_cast<const float*>(gbase + stat_off(st));
-      const float* delta_t = lse_t + kBlockQ;
-      wgmma_wait<1>();  // S^T; dP^T may still run
-      fence_operands(s);
-      // p = 2^(s * scale * log2e - lse): query 8jj + 2qd + e of the tile
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj) {
-        const float2 lv =
-            *reinterpret_cast<const float2*>(lse_t + 8 * jj + 2 * qd);
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          s[4 * jj + 2 * h] = exp2_ftz(fmaf(s[4 * jj + 2 * h], scale2, -lv.x));
-          s[4 * jj + 2 * h + 1] =
-              exp2_ftz(fmaf(s[4 * jj + 2 * h + 1], scale2, -lv.y));
+        for (int ks = 0; ks < D / 16; ++ks) {
+          // k16 step ks: box ks / 4, 32 bytes per step within its rows
+          const uint32_t ck = (ks / 4) * kKBox + (ks % 4) * 32 + wg * kWgKeys * 128;
+          const uint32_t cq = (ks / 4) * kQBox + (ks % 4) * 32;
+          wgmma_ss_m64n64k16<0, 0>(s, sw128_desc(s_k + ck, 16, 1024),
+                                   sw128_desc(s_q(st) + cq, 16, 1024), ks > 0);
         }
-      }
-      // only tiles that reach past the warpgroup's first key or past sk
-      if (ragged || (causal && q0 < key0 + wg * kWgKeys + kWgKeys - 1)) {
+        wgmma_commit();
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int kr = key0 + krow + 8 * h;
+        for (int ks = 0; ks < D / 16; ++ks) {
+          const uint32_t ck = (ks / 4) * kKBox + (ks % 4) * 32 + wg * kWgKeys * 128;
+          const uint32_t cq = (ks / 4) * kQBox + (ks % 4) * 32;
+          wgmma_ss_m64n64k16<0, 0>(dp, sw128_desc(s_v + ck, 16, 1024),
+                                   sw128_desc(s_do(st) + cq, 16, 1024), ks > 0);
+        }
+        wgmma_commit();
+
+        const float* lse_t =
+            reinterpret_cast<const float*>(gbase + stat_off(st));
+        const float* delta_t = lse_t + kBlockQ;
+        wgmma_wait<1>();  // S^T; dP^T may still run
+        fence_operands(s);
+        // p = 2^(s * scale * log2e - lse): query 8jj + 2qd + e of the tile
 #pragma unroll
-          for (int jj = 0; jj < 8; ++jj) {
+        for (int jj = 0; jj < 8; ++jj) {
+          const float2 lv =
+              *reinterpret_cast<const float2*>(lse_t + 8 * jj + 2 * qd);
 #pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const int c = q0 + 8 * jj + 2 * qd + e;
-              if (kr >= sk || (causal && c < kr)) s[4 * jj + 2 * h + e] = 0.f;
+          for (int h = 0; h < 2; ++h) {
+            s[4 * jj + 2 * h] = exp2_ftz(fmaf(s[4 * jj + 2 * h], scale2, -lv.x));
+            s[4 * jj + 2 * h + 1] =
+                exp2_ftz(fmaf(s[4 * jj + 2 * h + 1], scale2, -lv.y));
+          }
+        }
+        // only tiles that reach past the warpgroup's first key or past sk
+        // (under a window also past its first key's window)
+        if (ragged || (causal && q0 < key0 + wg * kWgKeys + kWgKeys - 1) ||
+            (kBand && window > 0 &&
+             q0 + kBlockQ - key0 - wg * kWgKeys > window)) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int kr = key0 + krow + 8 * h;
+#pragma unroll
+            for (int jj = 0; jj < 8; ++jj) {
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int c = q0 + 8 * jj + 2 * qd + e;
+                if (kr >= sk || (causal && c < kr) ||
+                    (kBand && window > 0 && c - kr >= window))
+                  s[4 * jj + 2 * h + e] = 0.f;
+              }
             }
           }
         }
-      }
-      wgmma_wait<0>();
-      fence_operands(dp);
-      // dS^T = P^T * (dP^T - delta) in f32, then P^T and dS^T in bf16 as
-      // the A fragments of the k16 steps over the tile's 64 queries
-      uint32_t pf[4][4], dsf[4][4];
+        wgmma_wait<0>();
+        fence_operands(dp);
+        // dS^T = P^T * (dP^T - delta) in f32, then P^T and dS^T in bf16 as
+        // the A fragments of the k16 steps over the tile's 64 queries
+        uint32_t pf[4][4], dsf[4][4];
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
+        for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
-        for (int jj = 2 * kk; jj < 2 * kk + 2; ++jj) {
-          const float2 dl =
-              *reinterpret_cast<const float2*>(delta_t + 8 * jj + 2 * qd);
+          for (int jj = 2 * kk; jj < 2 * kk + 2; ++jj) {
+            const float2 dl =
+                *reinterpret_cast<const float2*>(delta_t + 8 * jj + 2 * qd);
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            dp[4 * jj + 2 * h] =
-                s[4 * jj + 2 * h] * (dp[4 * jj + 2 * h] - dl.x);
-            dp[4 * jj + 2 * h + 1] =
-                s[4 * jj + 2 * h + 1] * (dp[4 * jj + 2 * h + 1] - dl.y);
+            for (int h = 0; h < 2; ++h) {
+              dp[4 * jj + 2 * h] =
+                  s[4 * jj + 2 * h] * (dp[4 * jj + 2 * h] - dl.x);
+              dp[4 * jj + 2 * h + 1] =
+                  s[4 * jj + 2 * h + 1] * (dp[4 * jj + 2 * h + 1] - dl.y);
+            }
+          }
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            pf[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+            dsf[kk][r] = pack_bf16(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1]);
           }
         }
+        // dS^T to shared memory, row = key, 64 queries a 128-byte row, in the
+        // 128-byte swizzle (16-byte chunk c of row r at chunk c ^ (r % 8))
+        unsigned char* ds = gbase + L::kDs + (it & 1) * kDsTile;
 #pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          pf[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
-          dsf[kk][r] = pack_bf16(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1]);
+        for (int h = 0; h < 2; ++h) {
+          const int r = krow + 8 * h;
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj)
+            *reinterpret_cast<uint32_t*>(ds + r * 128 + ((jj ^ (r & 7)) << 4) +
+                                         4 * qd) = dsf[jj / 2][(jj % 2) * 2 + h];
         }
-      }
-      // dS^T to shared memory, row = key, 64 queries a 128-byte row, in the
-      // 128-byte swizzle (16-byte chunk c of row r at chunk c ^ (r % 8))
-      unsigned char* ds = gbase + L::kDs + (n & 1) * kDsTile;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = krow + 8 * h;
-#pragma unroll
-        for (int jj = 0; jj < 8; ++jj)
-          *reinterpret_cast<uint32_t*>(ds + r * 128 + ((jj ^ (r & 7)) << 4) +
-                                       4 * qd) = dsf[jj / 2][(jj % 2) * 2 + h];
-      }
-      fence_proxy_async();
+        fence_proxy_async();
 
-      fence_operands(dv_acc);
-      fence_operands(dk_acc);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        // queries 16kk..16kk+15: two 8-row atoms; the next 64 columns of
-        // dO (and Q) are the next box
-        const uint64_t bdo = sw128_desc(s_do(st) + kk * 16 * 128, kQBox, 1024);
-        if constexpr (D == 128) wgmma_rs_m64n128k16(dv_acc, pf[kk], bdo);
-        else wgmma_rs_m64n64k16(dv_acc, pf[kk], bdo);
-      }
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const uint64_t bq = sw128_desc(s_q(st) + kk * 16 * 128, kQBox, 1024);
-        if constexpr (D == 128) wgmma_rs_m64n128k16(dk_acc, dsf[kk], bq);
-        else wgmma_rs_m64n64k16(dk_acc, dsf[kk], bq);
-      }
-      wgmma_commit();
-      // both warpgroups' halves of dS^T are in shared memory
-      named_sync(kDsBar, kConsumers);
-      if (wg < L::kBoxes) {
-        float dq[32];
+        fence_operands(dv_acc);
+        fence_operands(dk_acc);
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < kBlockK / 16; ++kk)
-          wgmma_ss_m64n64k16<1, 1>(
-              dq, sw128_desc(s_ds(n & 1) + kk * 16 * 128, kQBox, 1024),
-              sw128_desc(s_k + wg * kKBox + kk * 16 * 128, kKBox, 1024),
-              kk > 0);
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_operands(dq);
-        fence_operands(dv_acc);
-        fence_operands(dk_acc);
-        fence_operands(pf);
-        fence_operands(dsf);
-        mbar_arrive(empty(st));
-        // each warp stages its 16 rows, float4 jj of lane x at [jj][x] of
-        // its 4 KB, and adds them with one bulk reduction; the warp's 4 KB
-        // is free once its last reduction has read them
-        const int lane = t % 32;
-        if (lane == 0) bulk_wait_read<0>();
-        __syncwarp();
-        const uint32_t stage = L::kDq + wg * kDqTile + warp * (kDqTile / 4);
-        float4* mine = reinterpret_cast<float4*>(gbase + stage) + lane;
-#pragma unroll
-        for (int jj = 0; jj < 8; ++jj)
-          mine[jj * 32] = make_float4(dq[4 * jj], dq[4 * jj + 1],
-                                      dq[4 * jj + 2], dq[4 * jj + 3]);
-        fence_proxy_async();
-        __syncwarp();
-        if (lane == 0) {
-          const int64_t tile =
-              (static_cast<int64_t>(bh) * (sq_pad / kBlockQ) + i0 + n) *
-                  L::kBoxes + wg;
-          bulk_reduce_add_f32(dq_acc + tile * (kDqTile / 4) + warp * 1024,
-                              base + stage, kDqTile / 4);
-          bulk_commit();
+        for (int kk = 0; kk < 4; ++kk) {
+          // queries 16kk..16kk+15: two 8-row atoms; the next 64 columns of
+          // dO (and Q) are the next box
+          const uint64_t bdo = sw128_desc(s_do(st) + kk * 16 * 128, kQBox, 1024);
+          if constexpr (D == 128) wgmma_rs_m64n128k16(dv_acc, pf[kk], bdo);
+          else wgmma_rs_m64n64k16(dv_acc, pf[kk], bdo);
         }
-      } else {
-        wgmma_wait<0>();
-        fence_operands(dv_acc);
-        fence_operands(dk_acc);
-        fence_operands(pf);
-        fence_operands(dsf);
-        mbar_arrive(empty(st));
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint64_t bq = sw128_desc(s_q(st) + kk * 16 * 128, kQBox, 1024);
+          if constexpr (D == 128) wgmma_rs_m64n128k16(dk_acc, dsf[kk], bq);
+          else wgmma_rs_m64n64k16(dk_acc, dsf[kk], bq);
+        }
+        wgmma_commit();
+        // both warpgroups' halves of dS^T are in shared memory
+        named_sync(kDsBar, kConsumers);
+        if (wg < L::kBoxes) {
+          float dq[32];
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < kBlockK / 16; ++kk)
+            wgmma_ss_m64n64k16<1, 1>(
+                dq, sw128_desc(s_ds(it & 1) + kk * 16 * 128, kQBox, 1024),
+                sw128_desc(s_k + wg * kKBox + kk * 16 * 128, kKBox, 1024),
+                kk > 0);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_operands(dq);
+          fence_operands(dv_acc);
+          fence_operands(dk_acc);
+          fence_operands(pf);
+          fence_operands(dsf);
+          mbar_arrive(empty(st));
+          // each warp stages its 16 rows, float4 jj of lane x at [jj][x] of
+          // its 4 KB, and adds them with one bulk reduction; the warp's 4 KB
+          // is free once its last reduction has read them
+          const int lane = t % 32;
+          if (lane == 0) bulk_wait_read<0>();
+          __syncwarp();
+          const uint32_t stage = L::kDq + wg * kDqTile + warp * (kDqTile / 4);
+          float4* mine = reinterpret_cast<float4*>(gbase + stage) + lane;
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj)
+            mine[jj * 32] = make_float4(dq[4 * jj], dq[4 * jj + 1],
+                                        dq[4 * jj + 2], dq[4 * jj + 3]);
+          fence_proxy_async();
+          __syncwarp();
+          if (lane == 0) {
+            const int64_t bh = static_cast<int64_t>(blockIdx.x) * heads + hq;
+            const int64_t tile =
+                (bh * (sq_pad / kBlockQ) + i0 + n) * L::kBoxes + wg;
+            bulk_reduce_add_f32(dq_acc + tile * (kDqTile / 4) + warp * 1024,
+                                base + stage, kDqTile / 4);
+            bulk_commit();
+          }
+        } else {
+          wgmma_wait<0>();
+          fence_operands(dv_acc);
+          fence_operands(dk_acc);
+          fence_operands(pf);
+          fence_operands(dsf);
+          mbar_arrive(empty(st));
+        }
       }
     }
 
@@ -440,7 +481,7 @@ flash_bwd(const __grid_constant__ CUtensorMap q_map,
     for (int h = 0; h < 2; ++h) {
       const int kr = key0 + krow + 8 * h;
       if (kr >= sk) continue;
-      const int64_t off = (static_cast<int64_t>(bh) * sk + kr) * D + 2 * qd;
+      const int64_t off = (static_cast<int64_t>(bh_kv) * sk + kr) * D + 2 * qd;
 #pragma unroll
       for (int i = 0; i < D / 8; ++i) {
         *reinterpret_cast<uint32_t*>(dk + off + i * 8) =
@@ -527,18 +568,19 @@ bool encode_map(EncodeTiled fn, CUtensorMap* map, const void* ptr,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+template <int D, bool kBand>
 int launch(int64_t bh, int64_t sq, int64_t sk, cudaStream_t s, const void* q,
            const void* k, const void* v, const bf16* out, const bf16* dout,
            const float* m, const float* l, bf16* dq, bf16* dk, bf16* dv,
-           float* stats, float* dq_acc, int causal, float scale) {
+           float* stats, float* dq_acc, int causal, float scale, int group,
+           int window) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap q_map, do_map, k_map, v_map;
   if (!encode_map(fn, &q_map, q, bh, sq, D, kBlockQ) ||
       !encode_map(fn, &do_map, dout, bh, sq, D, kBlockQ) ||
-      !encode_map(fn, &k_map, k, bh, sk, D, kBlockK) ||
-      !encode_map(fn, &v_map, v, bh, sk, D, kBlockK))
+      !encode_map(fn, &k_map, k, bh / group, sk, D, kBlockK) ||
+      !encode_map(fn, &v_map, v, bh / group, sk, D, kBlockK))
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t sq_pad = (sq + kBlockQ - 1) / kBlockQ * kBlockQ;
   float* lse2 = stats;
@@ -553,15 +595,16 @@ int launch(int64_t bh, int64_t sq, int64_t sk, cudaStream_t s, const void* q,
   if (err != cudaSuccess) return static_cast<int>(err);
 
   constexpr int kSmem = Layout<D>::kSmem;
-  err = cudaFuncSetAttribute(flash_bwd<D>,
+  err = cudaFuncSetAttribute(flash_bwd<D, kBand>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>(bh),
+  const dim3 grid(static_cast<unsigned>(bh / group),
                   static_cast<unsigned>((sk + kBlockK - 1) / kBlockK));
-  flash_bwd<D><<<grid, kThreads, kSmem, s>>>(
+  flash_bwd<D, kBand><<<grid, kThreads, kSmem, s>>>(
       q_map, do_map, k_map, v_map, lse2, delta, dq_acc, dk, dv,
-      static_cast<int>(sq), static_cast<int>(sk), causal, scale);
+      static_cast<int>(sq), static_cast<int>(sk), causal, scale, group,
+      window);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
@@ -572,23 +615,39 @@ int launch(int64_t bh, int64_t sq, int64_t sk, cudaStream_t s, const void* q,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int D>
+int launch_any(int64_t bh, int64_t sq, int64_t sk, cudaStream_t s,
+               const void* q, const void* k, const void* v, const bf16* out,
+               const bf16* dout, const float* m, const float* l, bf16* dq,
+               bf16* dk, bf16* dv, float* stats, float* dq_acc, int causal,
+               float scale, int group, int window) {
+  if (group > 1 || window > 0)
+    return launch<D, true>(bh, sq, sk, s, q, k, v, out, dout, m, l, dq, dk,
+                           dv, stats, dq_acc, causal, scale, group, window);
+  return launch<D, false>(bh, sq, sk, s, q, k, v, out, dout, m, l, dq, dk, dv,
+                          stats, dq_acc, causal, scale, 1, 0);
+}
+
 }  // namespace
 
 // dq, dk, dv = the attention backward on `stream`: q, out, dout
-// [bh, sq, d], k, v [bh, sk, d] bf16, m, l [bh, sq] f32 (the forward's),
-// all contiguous and 16-byte aligned; dq, dk, dv bf16 like q, k, v.
-// Workspace: stats f32 [2, bh, sq_pad] and dq_acc f32 [bh, sq_pad, d], with
-// sq_pad = sq rounded up to a multiple of 64. d is 64 or 128. Returns a
-// cudaError_t.
+// [bh, sq, d], k, v [bh / group, sk, d] bf16, m, l [bh, sq] f32 (the
+// forward's), all contiguous and 16-byte aligned; dq, dk, dv bf16 like q,
+// k, v, dk and dv summed over each K/V row's group of query rows; window
+// > 0 (causal only) as the forward's. Workspace: stats f32 [2, bh, sq_pad]
+// and dq_acc f32 [bh, sq_pad, d], with sq_pad = sq rounded up to a
+// multiple of 64. d is 64 or 128. Returns a cudaError_t.
 extern "C" int flash_attention_bwd_bf16(
     const void* q, const void* k, const void* v, const void* out,
     const void* dout, const void* m, const void* l, void* dq, void* dk,
     void* dv, void* stats, void* dq_acc, int64_t bh, int64_t sq, int64_t sk,
-    int64_t d, int causal, float scale, void* stream) {
+    int64_t d, int causal, float scale, int64_t group, int64_t window,
+    void* stream) {
   if (bh <= 0 || sq <= 0 || sk <= 0 || bh > 2147483647 ||
       sq > 2147483647 - kBlockQ || (sk + kBlockK - 1) / kBlockK > 65535 ||
       bh * ((sq + kBlockQ - 1) / kBlockQ) * kBlockQ / 16 > 2147483647 ||
-      bh * sq * d / 8 / 256 > 2147483647)
+      bh * sq * d / 8 / 256 > 2147483647 || group < 1 || bh % group != 0 ||
+      window < 0 || window > 2147483647 || (window > 0 && !causal))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bf16* po = static_cast<const bf16*>(out);
@@ -602,11 +661,13 @@ extern "C" int flash_attention_bwd_bf16(
   float* pacc = static_cast<float*>(dq_acc);
   switch (d) {
     case 64:
-      return launch<64>(bh, sq, sk, s, q, k, v, po, pg, pm, pl, pdq, pdk, pdv,
-                        pst, pacc, causal, scale);
+      return launch_any<64>(bh, sq, sk, s, q, k, v, po, pg, pm, pl, pdq, pdk,
+                            pdv, pst, pacc, causal, scale,
+                            static_cast<int>(group), static_cast<int>(window));
     case 128:
-      return launch<128>(bh, sq, sk, s, q, k, v, po, pg, pm, pl, pdq, pdk,
-                         pdv, pst, pacc, causal, scale);
+      return launch_any<128>(bh, sq, sk, s, q, k, v, po, pg, pm, pl, pdq, pdk,
+                             pdv, pst, pacc, causal, scale,
+                             static_cast<int>(group), static_cast<int>(window));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -11,7 +11,9 @@ statistics are exactly what the ring merge needs.
 
 Layout [BH, S, D]. Causal masking is positional (runtime global offsets)
 because in ring attention a K block's global position depends on which
-hop it arrived on.
+hop it arrived on. Beyond the TPU kernel (which has neither), K/V may hold
+fewer heads than Q (grouped-query attention: query row r reads K/V row
+r // group) and the causal mask may take a sliding window of W keys.
 
 ``flash_attention_blocks`` launches kernel B2 (``csrc/flash_attention.cu``)
 on a CUDA tensor and runs its plain version,
@@ -25,13 +27,15 @@ Under ``torch.profiler`` each entry records a ``tpu_operator_torch.*``
 span (``backend.span``): ``flash_attention`` holds ``.fold`` (the
 layout change to [BH, S, D]), ``flash_attention_blocks`` (checks, its
 ``.align`` copies, allocations, its ``.launch``) and ``.unfold``;
-``flash_bwd`` covers the backward.
+``flash_bwd`` covers the backward, with its ``.align`` copies and its
+``.launch``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+import numbers
 from typing import Tuple
 
 import torch
@@ -53,6 +57,7 @@ _SIGNATURES = {
         ctypes.c_int64,                                      # d
         ctypes.c_int64, ctypes.c_int64,                      # q/k offset
         ctypes.c_int, ctypes.c_float,                        # causal, scale
+        ctypes.c_int64, ctypes.c_int64,                      # group, window
         ctypes.c_void_p)),                                   # stream
 }
 
@@ -70,70 +75,135 @@ _BWD_SIGNATURES = {
         ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,      # bh, sq, sk
         ctypes.c_int64,                                      # d
         ctypes.c_int, ctypes.c_float,                        # causal, scale
+        ctypes.c_int64, ctypes.c_int64,                      # group, window
         ctypes.c_void_p)),                                   # stream
 }
+
+
+def _seen(q_pos: torch.Tensor, k_pos: torch.Tensor, window) -> torch.Tensor:
+    """The pairs the causal mask leaves visible: k_pos <= q_pos, and under
+    a window of W keys also q_pos - W < k_pos."""
+    seen = q_pos >= k_pos
+    return seen if window is None else seen & (q_pos - k_pos < window)
 
 
 def flash_attention_blocks_reference(
         q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q_offset: int, k_offset: int, causal: bool = True,
-        q_tile: int = 256, chunk: int = 512,
+        q_tile: int = 256, chunk: int = 512, window=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of ``_flash_kernel``: each Q tile streams K/V chunks
     through the f32 online softmax. Scores are scaled before the mask, so
-    ``NEG_INF`` is never scaled; ragged ends take a shorter last tile."""
+    ``NEG_INF`` is never scaled; ragged ends take a shorter last tile.
+    Query row r reads K/V row r // group, group = q.shape[0] //
+    k.shape[0] (the group's rows are adjacent in the b-major fold), and
+    a ``window`` of W keys leaves the query at global position i the keys
+    j with i - W < j <= i."""
     bh, sq, d = q.shape
-    sk = k.shape[1]
+    bkv, sk = k.shape[:2]
+    g = bh // bkv if bkv else 1
     scale = 1.0 / math.sqrt(d)
     out = torch.empty_like(q)
     m_all = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
     l_all = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
     for q0 in range(0, sq, q_tile):
-        qt = q[:, q0:q0 + q_tile].float()
-        tq = qt.shape[1]
+        tq = min(q_tile, sq - q0)
+        qt = q[:, q0:q0 + tq].float().reshape(bkv, g, tq, d)
         q_pos = q_offset + q0 + torch.arange(tq, device=q.device)[:, None]
-        acc = torch.zeros((bh, tq, d), dtype=torch.float32, device=q.device)
-        m = torch.full((bh, tq, 1), NEG_INF, dtype=torch.float32,
+        acc = torch.zeros((bkv, g, tq, d), dtype=torch.float32,
+                          device=q.device)
+        m = torch.full((bkv, g, tq, 1), NEG_INF, dtype=torch.float32,
                        device=q.device)
-        l = torch.zeros((bh, tq, 1), dtype=torch.float32, device=q.device)
+        l = torch.zeros((bkv, g, tq, 1), dtype=torch.float32, device=q.device)
         for k0 in range(0, sk, chunk):
             kc = k[:, k0:k0 + chunk].float()
             vc = v[:, k0:k0 + chunk].float()
-            s = torch.einsum("bqd,bkd->bqk", qt, kc) * scale
+            s = torch.einsum("bgqd,bkd->bgqk", qt, kc) * scale
             if causal:
                 k_pos = k_offset + k0 + torch.arange(kc.shape[1],
                                                      device=q.device)[None, :]
-                s = torch.where(q_pos >= k_pos, s, NEG_INF)
-            m_new = torch.maximum(m, s.amax(dim=2, keepdim=True))
+                s = torch.where(_seen(q_pos, k_pos, window), s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=3, keepdim=True))
             dead = m_new <= NEG_INF / 2
             # fully-masked rows keep exp well-defined
             p = torch.exp(s - torch.where(dead, 0.0, m_new))
             p = torch.where(dead, 0.0, p)
             alpha = torch.where(dead, 0.0, torch.exp(m - m_new))
-            l = l * alpha + p.sum(dim=2, keepdim=True)
-            acc = acc * alpha + torch.einsum("bqk,bkd->bqd", p, vc)
+            l = l * alpha + p.sum(dim=3, keepdim=True)
+            acc = acc * alpha + torch.einsum("bgqk,bkd->bgqd", p, vc)
             m = m_new
-        out[:, q0:q0 + tq] = (acc / torch.where(l == 0.0, 1.0, l)).to(q.dtype)
-        m_all[:, q0:q0 + tq] = m[..., 0]
-        l_all[:, q0:q0 + tq] = l[..., 0]
+        o = acc / torch.where(l == 0.0, 1.0, l)
+        out[:, q0:q0 + tq] = o.reshape(bh, tq, d).to(q.dtype)
+        m_all[:, q0:q0 + tq] = m.reshape(bh, tq)
+        l_all[:, q0:q0 + tq] = l.reshape(bh, tq)
     return out, m_all, l_all
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if not isinstance(t, torch.Tensor) or t.dim() != 3:
-            raise ValueError(f"flash_attention_blocks: {name} must be a "
-                             f"[BH, S, D] tensor")
-        if t.device != q.device or t.dtype != q.dtype:
-            raise ValueError("flash_attention_blocks: q, k, v must share "
-                             "device and dtype")
-        if t.device.type not in ("cpu", "cuda"):
-            raise ValueError(f"flash_attention_blocks: unsupported device "
-                             f"{t.device}")
-    if k.shape != v.shape or k.shape[0] != q.shape[0] \
-            or k.shape[2] != q.shape[2]:
-        raise ValueError(f"flash_attention_blocks: shapes q{tuple(q.shape)} "
-                         f"k{tuple(k.shape)} v{tuple(v.shape)} disagree")
+def _disagree(where: str, why: str, named) -> ValueError:
+    return ValueError(f"{where}: shapes disagree: {why}: " + " ".join(
+        f"{name}{tuple(t.shape)}" for name, t in named))
+
+
+def _contract(where: str, q, k, v, rest=(), causal: bool = True,
+              window=None, share_dtype: bool = True) -> Tuple[int, int]:
+    """The one contract of kernels B2 and B3 and of their plain versions:
+    q [BH, Sq, D], k and v [BH / group, Sk, D] on one CPU or CUDA device;
+    ``rest`` names B3's further tensors (out and dout like q, m and l
+    [BH, Sq]); on a card, bf16 with D in ``KERNEL_HEAD_DIMS`` and f32 m
+    and l; a ``window`` is a whole number of keys >= 1 under the causal
+    mask. Returns (group, window), the window 0 where there is none. It
+    runs on every call, so messages are built only to raise."""
+    named = (("q", q), ("k", k), ("v", v), *rest)
+    for name, t in named:
+        if not isinstance(t, torch.Tensor):
+            raise ValueError(f"{where}: {name} must be a tensor")
+    dev = q.device
+    for name, t in named:
+        if t.device != dev or dev.type not in ("cpu", "cuda"):
+            raise ValueError(f"{where}: unsupported device {t.device} for "
+                             f"{name} (q on {dev})")
+    qs, ks = q.shape, k.shape
+    for name, t in named:
+        stats = name == "m" or name == "l"
+        if t.dim() != (2 if stats else 3):
+            raise _disagree(where, f"{name} must be a "
+                            f"{'[BH, S]' if stats else '[BH, S, D]'} tensor",
+                            named)
+        if name in ("out", "dout") and t.shape != qs \
+                or stats and t.shape != qs[:2]:
+            raise _disagree(where, f"{name} must match q", named)
+    if share_dtype and not q.dtype == k.dtype == v.dtype:
+        raise ValueError(f"{where}: q, k, v must share device and dtype")
+    bh, bkv = qs[0], ks[0]
+    if ks != v.shape or ks[2] != qs[2] or (bh % bkv if bkv else bh):
+        raise _disagree(where, "k and v alike, q's BH a multiple of theirs",
+                        named)
+    if window is not None:
+        if isinstance(window, bool) \
+                or not isinstance(window, numbers.Integral) or window < 1:
+            raise ValueError(f"{where}: window must be a whole number of "
+                             f"keys >= 1, got {window!r}")
+        if not causal:
+            raise ValueError(f"{where}: a window needs the causal mask "
+                             f"(causal=False, window={window})")
+    if dev.type == "cuda":
+        data = [(name, t) for name, t in named if name not in ("m", "l")]
+        if any(t.dtype != KERNEL_DTYPE for _, t in data):
+            raise ValueError(f"{where}: the kernel takes {KERNEL_DTYPE} "
+                             f"{', '.join(n for n, _ in data)} on the card, "
+                             f"got {[t.dtype for _, t in data]}")
+        if any(t.dtype != torch.float32 for name, t in rest
+               if name in ("m", "l")):
+            raise ValueError(f"{where}: m and l must be float32")
+        if qs[2] not in KERNEL_HEAD_DIMS:
+            raise ValueError(f"{where}: head dim {qs[2]} not in "
+                             f"{KERNEL_HEAD_DIMS}")
+    return (bh // bkv if bkv else 1), (0 if window is None else int(window))
+
+
+def _count(fn, group: int, window: int) -> None:
+    fn.window_calls += window > 0
+    fn.grouped_calls += group > 1
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -145,36 +215,36 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 def flash_attention_blocks(
         q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q_offset: int, k_offset: int, causal: bool = True,
-        q_tile: int = 256, chunk: int = 512,
+        q_tile: int = 256, chunk: int = 512, window=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Fused attend of q against (k, v) with positional causal masking.
 
-    q, k, v: [BH, S, D]. Returns (out [BH, Sq, D], NORMALISED, in q's
-    dtype; m [BH, Sq] and l [BH, Sq] in f32) so a ring merge can combine
-    blocks: unnormalised partial = out * l. ``q_offset``/``k_offset`` are
-    the global positions of element 0. A row that sees no key gives
-    out = 0, l = 0 and m = NEG_INF.
+    q [BH, Sq, D], k and v [BH / group, Sk, D]: query row r reads K/V row
+    r // group (grouped KV heads, folded b-major). Returns (out [BH, Sq,
+    D], NORMALISED, in q's dtype; m [BH, Sq] and l [BH, Sq] in f32) so a
+    ring merge can combine blocks: unnormalised partial = out * l.
+    ``q_offset``/``k_offset`` are the global positions of element 0, and
+    a ``window`` of W keys (causal only) leaves the query at global
+    position i the keys j with i - W < j <= i. A row that sees no key
+    gives out = 0, l = 0 and m = NEG_INF.
 
     On a CUDA tensor this launches kernel B2 (and counts the launch in
     ``flash_attention_blocks.launches``), which takes bf16 with D in
     ``KERNEL_HEAD_DIMS`` and always works in 128-row Q tiles and 128-key
     chunks; ``q_tile``/``chunk`` are the plain version's loop steps, used
-    on a CPU tensor.
+    on a CPU tensor. Calls with a window and with a group above 1 are
+    counted in ``.window_calls`` and ``.grouped_calls`` on both paths.
     """
     with span("flash_attention_blocks"):
-        _check(q, k, v)
+        group, win = _contract("flash_attention_blocks", q, k, v,
+                               causal=causal, window=window)
+        _count(flash_attention_blocks, group, win)
         if q.device.type == "cpu":
             return flash_attention_blocks_reference(q, k, v, q_offset,
                                                     k_offset, causal, q_tile,
-                                                    chunk)
+                                                    chunk, window)
         bh, sq, d = q.shape
         sk = k.shape[1]
-        if q.dtype != KERNEL_DTYPE:
-            raise ValueError(f"flash_attention_blocks: the kernel takes "
-                             f"{KERNEL_DTYPE} on the card, got {q.dtype}")
-        if d not in KERNEL_HEAD_DIMS:
-            raise ValueError(f"flash_attention_blocks: head dim {d} not in "
-                             f"{KERNEL_HEAD_DIMS}")
         # at B == 1 the fold is a view, and these are its copies
         with span("flash_attention_blocks.align"):
             q, k, v = _aligned(q), _aligned(k), _aligned(v)
@@ -191,7 +261,7 @@ def flash_attention_blocks(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 out.data_ptr(), m.data_ptr(), l.data_ptr(),
                 bh, sq, sk, d, int(q_offset), int(k_offset),
-                1 if causal else 0, 1.0 / math.sqrt(d), stream)
+                1 if causal else 0, 1.0 / math.sqrt(d), group, win, stream)
         if err != 0:
             raise RuntimeError(f"flash attention kernel launch failed: "
                                f"cudaError {err}")
@@ -200,6 +270,8 @@ def flash_attention_blocks(
 
 
 flash_attention_blocks.launches = 0
+flash_attention_blocks.window_calls = 0
+flash_attention_blocks.grouped_calls = 0
 
 
 # ---------------------------------------------------------------------------
@@ -212,91 +284,75 @@ flash_attention_blocks.launches = 0
 
 
 def flash_bwd_reference(q, k, v, out, m, l, dout, causal: bool,
-                        chunk: int = 512):
+                        chunk: int = 512, window=None):
     """Plain version of kernel B3: the chunked-recompute backward of
     ``_flash_bwd_rule``, in f32, with cotangents cast back to the input
-    dtypes."""
+    dtypes. Grouped K/V rows (``flash_attention_blocks_reference``'s
+    rule) take dK and dV summed over their group's query rows."""
     bh, sq, d = q.shape
-    sk = k.shape[1]
+    bkv, sk = k.shape[:2]
+    g = bh // bkv if bkv else 1
     chunk = min(chunk, sk)
     scale = 1.0 / math.sqrt(d)
-    l_safe = torch.where(l == 0.0, 1.0, l)
     in_dtypes = (q.dtype, k.dtype, v.dtype)
     # compute in f32 like the forward: recomputed P must match the
     # forward's P, not a bf16 quantisation
-    q = q.float()
-    dout = dout.float()
-    out = out.float()
-    delta = (dout * out).sum(dim=-1)                           # [BH, Sq]
+    q, dout, out = (t.float().reshape(bkv, g, sq, d) for t in (q, dout, out))
+    m = m.reshape(bkv, g, sq)
+    l_safe = torch.where(l == 0.0, 1.0, l).reshape(bkv, g, sq)
+    delta = (dout * out).sum(dim=-1)                        # [Bkv, G, Sq]
     q_pos = torch.arange(sq, device=q.device)[:, None]
     dead = (m <= NEG_INF / 2)[..., None]
-    dq = torch.zeros((bh, sq, d), dtype=torch.float32, device=q.device)
+    dq = torch.zeros((bkv, g, sq, d), dtype=torch.float32, device=q.device)
     dk_cs, dv_cs = [], []
     for k0 in range(0, sk, chunk):
         ks = k[:, k0:k0 + chunk].float()
         vs = v[:, k0:k0 + chunk].float()
-        s = torch.einsum("bqd,bkd->bqk", q, ks) * scale         # [BH,Sq,C]
+        s = torch.einsum("bgqd,bkd->bgqk", q, ks) * scale    # [Bkv,G,Sq,C]
         if causal:
-            k_pos = k0 + torch.arange(ks.shape[1],
-                                      device=q.device)[None, :]
-            s = torch.where(q_pos >= k_pos, s, NEG_INF)
+            k_pos = k0 + torch.arange(ks.shape[1], device=q.device)[None, :]
+            s = torch.where(_seen(q_pos, k_pos, window), s, NEG_INF)
         p = torch.exp(s - m[..., None]) / l_safe[..., None]
         p = torch.where(dead, 0.0, p)
-        dv_cs.append(torch.einsum("bqk,bqd->bkd", p, dout))
-        dp = torch.einsum("bqd,bkd->bqk", dout, vs)
+        dv_cs.append(torch.einsum("bgqk,bgqd->bkd", p, dout))
+        dp = torch.einsum("bgqd,bkd->bgqk", dout, vs)
         ds = p * (dp - delta[..., None])
-        dq += torch.einsum("bqk,bkd->bqd", ds, ks) * scale
-        dk_cs.append(torch.einsum("bqk,bqd->bkd", ds, q) * scale)
+        dq += torch.einsum("bgqk,bkd->bgqd", ds, ks) * scale
+        dk_cs.append(torch.einsum("bgqk,bgqd->bkd", ds, q) * scale)
     dk = torch.cat(dk_cs, dim=1)
     dv = torch.cat(dv_cs, dim=1)
-    return tuple(t.to(dt) for t, dt in zip((dq, dk, dv), in_dtypes))
+    return tuple(t.to(dt) for t, dt in zip((dq.reshape(bh, sq, d), dk, dv),
+                                           in_dtypes))
 
 
-def _check_bwd(q, k, v, out, m, l, dout) -> None:
-    named = (("q", q), ("k", k), ("v", v), ("out", out), ("m", m),
-             ("l", l), ("dout", dout))
-    for name, t in named:
-        if not isinstance(t, torch.Tensor):
-            raise ValueError(f"flash_bwd: {name} must be a tensor")
-        if t.device.type not in ("cpu", "cuda") or t.device != q.device:
-            raise ValueError(f"flash_bwd: unsupported device {t.device} "
-                             f"for {name} (q on {q.device})")
-    if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape \
-            or k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2] \
-            or out.shape != q.shape or dout.shape != q.shape \
-            or m.shape != q.shape[:2] or l.shape != q.shape[:2]:
-        raise ValueError(
-            "flash_bwd: shapes disagree: " + " ".join(
-                f"{name}{tuple(t.shape)}" for name, t in named))
-
-
-def flash_bwd(q, k, v, out, m, l, dout, causal: bool, chunk: int = 512):
-    """dq, dk, dv of ``flash_attention_blocks(q, k, v, 0, 0, causal)`` from
-    its (out, m, l) and the upstream gradient ``dout``.
+def flash_bwd(q, k, v, out, m, l, dout, causal: bool, chunk: int = 512,
+              window=None):
+    """dq, dk, dv of ``flash_attention_blocks(q, k, v, 0, 0, causal,
+    window=window)`` from its (out, m, l) and the upstream gradient
+    ``dout``; dk and dv have k's and v's shape, each summed over its
+    group's query rows.
 
     On a CUDA tensor this launches kernel B3 (and counts the call in
     ``flash_bwd.launches``), which takes bf16 q, k, v, out and dout with D
     in ``KERNEL_HEAD_DIMS`` and f32 m and l; ``chunk`` is the plain
-    version's step over keys, used on a CPU tensor.
+    version's step over keys, used on a CPU tensor. Calls with a window
+    and with a group above 1 are counted in ``.window_calls`` and
+    ``.grouped_calls`` on both paths.
     """
     with span("flash_bwd"):
-        _check_bwd(q, k, v, out, m, l, dout)
+        group, win = _contract(
+            "flash_bwd", q, k, v, (("out", out), ("m", m), ("l", l),
+                                   ("dout", dout)),
+            causal=causal, window=window, share_dtype=False)
+        _count(flash_bwd, group, win)
         if q.device.type == "cpu":
             return flash_bwd_reference(q, k, v, out, m, l, dout, causal,
-                                       chunk)
+                                       chunk, window)
         bh, sq, d = q.shape
         sk = k.shape[1]
-        if any(t.dtype != KERNEL_DTYPE for t in (q, k, v, out, dout)):
-            raise ValueError(f"flash_bwd: the kernel takes {KERNEL_DTYPE} "
-                             f"q, k, v, out and dout on the card, got "
-                             f"{[t.dtype for t in (q, k, v, out, dout)]}")
-        if m.dtype != torch.float32 or l.dtype != torch.float32:
-            raise ValueError("flash_bwd: m and l must be float32")
-        if d not in KERNEL_HEAD_DIMS:
-            raise ValueError(f"flash_bwd: head dim {d} not in "
-                             f"{KERNEL_HEAD_DIMS}")
-        q, k, v, out, dout = (_aligned(t) for t in (q, k, v, out, dout))
-        m, l = m.contiguous(), l.contiguous()
+        with span("flash_bwd.align"):
+            q, k, v, out, dout = (_aligned(t) for t in (q, k, v, out, dout))
+            m, l = m.contiguous(), l.contiguous()
         dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
         if bh == 0 or sq == 0 or sk == 0:
             return dq.zero_(), dk.zero_(), dv.zero_()
@@ -306,14 +362,14 @@ def flash_bwd(q, k, v, out, m, l, dout, causal: bool, chunk: int = 512):
         dq_acc = torch.empty((bh, sq_pad, d), dtype=torch.float32,
                              device=q.device)
         lib = build.load("flash_attention_bwd", _BWD_SIGNATURES)
-        with torch.cuda.device(q.device):
+        with span("flash_bwd.launch"), torch.cuda.device(q.device):
             stream = torch.cuda.current_stream(q.device).cuda_stream
             err = lib.flash_attention_bwd_bf16(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 dout.data_ptr(), m.data_ptr(), l.data_ptr(), dq.data_ptr(),
                 dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
                 dq_acc.data_ptr(), bh, sq, sk, d, 1 if causal else 0,
-                1.0 / math.sqrt(d), stream)
+                1.0 / math.sqrt(d), group, win, stream)
         if err != 0:
             raise RuntimeError(f"flash attention backward kernel launch "
                                f"failed: cudaError {err}")
@@ -322,34 +378,48 @@ def flash_bwd(q, k, v, out, m, l, dout, causal: bool, chunk: int = 512):
 
 
 flash_bwd.launches = 0
+flash_bwd.window_calls = 0
+flash_bwd.grouped_calls = 0
 
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal):
-        out, m, l = flash_attention_blocks(q, k, v, 0, 0, causal=causal)
+    def forward(ctx, q, k, v, causal, window):
+        out, m, l = flash_attention_blocks(q, k, v, 0, 0, causal=causal,
+                                           window=window)
         ctx.save_for_backward(q, k, v, out, m, l)
         ctx.causal = causal
+        ctx.window = window
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, m, l = ctx.saved_tensors
-        dq, dk, dv = flash_bwd(q, k, v, out, m, l, dout, ctx.causal)
-        return dq, dk, dv, None
+        dq, dk, dv = flash_bwd(q, k, v, out, m, l, dout, ctx.causal,
+                               window=ctx.window)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True, window=None) -> torch.Tensor:
     """Single-device flash attention, [B, S, H, D] layout (the drop-in for
-    ``reference_attention``). Differentiable: the backward pass is
-    ``flash_bwd`` (kernel B3 on the card)."""
+    ``reference_attention``). k and v may hold fewer heads, [B, S, Hkv, D]
+    with H a multiple of Hkv: query head h reads KV head h // (H // Hkv),
+    transformers' ``repeat_kv``, without repeating K/V in memory.
+    ``window=W`` (causal only) leaves the query at position i the keys j
+    with i - W < j <= i, W keys with itself: transformers' sliding-window
+    causal mask. Differentiable: the backward pass is ``flash_bwd``
+    (kernel B3 on the card)."""
     with span("flash_attention"):
+        if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+            raise ValueError(f"flash_attention: q, k, v must be [B, S, H, "
+                             f"D] tensors, got q{tuple(q.shape)} "
+                             f"k{tuple(k.shape)} v{tuple(v.shape)}")
         B, S, H, D = q.shape
-        fold = lambda t: t.transpose(1, 2).reshape(B * H, -1, D)
+        fold = lambda t: t.transpose(1, 2).reshape(B * t.shape[2], -1, D)
         with span("flash_attention.fold"):
             qf, kf, vf = fold(q), fold(k), fold(v)
-        out = _FlashAttention.apply(qf, kf, vf, causal)
+        out = _FlashAttention.apply(qf, kf, vf, causal, window)
         del qf, kf, vf
         with span("flash_attention.unfold"):
             return out.reshape(B, H, S, D).transpose(1, 2)
