@@ -37,7 +37,11 @@ Phases, each fatal:
    rows that see no key inside a live block (exact), a block wholly in
    the future (exact), non-causal D=128 and a two-block merge; the
    backward kernel at the training cell's shape, ragged lengths,
-   non-causal D=128, D=64 and dead rows (their dq exactly 0);
+   non-causal D=128, D=64 and dead rows (their dq exactly 0); the backward
+   kernel on ``flash_attention``'s fold views at B = 1 against itself on
+   their contiguous copies (dk and dv bit-equal, dq within the contiguous
+   path's own run-to-run difference), and on a misaligned q, which only
+   the copying fallback takes;
 4. run the validator chain with the triad's count set to 0, and require
    that the chain went through the kernel and wrote every barrier file;
    then the DCN proof, once on this one node (skipped) and once as node 1
@@ -45,7 +49,9 @@ Phases, each fatal:
 5. run the collective suite over NCCL at world size 1 against its oracle;
 6. run the long-context path with the flash kernels' counts set to 0, and
    require that it is correct and went through the kernels (the backward
-   through ``flash_attention``'s gradient check);
+   through ``flash_attention``'s gradient check); at both training cells'
+   widths, profile ``flash_attention``'s backward: B3's three kernels
+   alone on the card, no operand copied, the leaves' gradients contiguous;
 7. time each kernel beside its bound, its plain version and the library
    call computing the same function (SDPA's backward for the backward
    kernel, timed here only), the matmul proof, and the parts of the flash
@@ -641,6 +647,50 @@ def check_flash_attention_layers(torch, fa, ra, dev, gen,
     return out
 
 
+def check_flash_attention_no_copies(torch, fa, dev, gen, shape, hkv,
+                                    window=None) -> dict:
+    """``flash_attention``'s backward at B = 1 under ``torch.profiler``:
+    on the card only B3's three kernels run (``flash_bwd_pre``,
+    ``flash_bwd``, ``flash_bwd_post``: no copy, no elementwise kernel),
+    ``flash_bwd.copies`` does not rise, and the leaves' gradients come
+    back contiguous, as autograd keeps them without a clone."""
+    _, S, H, D = shape
+    q, dout = (torch.randn((1, S, H, D), generator=gen, device=dev)
+               .to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((1, S, hkv, D), generator=gen, device=dev)
+            .to(torch.bfloat16) for _ in range(2))
+    xs = [t.requires_grad_() for t in (q, k, v)]
+    o = fa.flash_attention(*xs, causal=True, window=window)
+    torch.cuda.synchronize()
+    before = fa.flash_bwd.copies
+    act = torch.profiler.ProfilerActivity
+    with tempfile.TemporaryDirectory() as tmp:
+        with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+            o.backward(dout)
+            torch.cuda.synchronize()
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    names = sorted({re.sub(r"^void |\(anonymous namespace\)::|\(.*$", "",
+                           e.get("name", ""))
+                    for e in events if e.get("cat") in (
+                        "kernel", "gpu_memcpy", "gpu_memset")})
+    want = ["flash_bwd<%d, %s>" % (D, "true" if hkv < H or window else
+                                   "false"),
+            "flash_bwd_post<%d>" % D, "flash_bwd_pre<%d>" % D]
+    res = {"device_ops": names, "copies": fa.flash_bwd.copies - before,
+           "grads_contiguous": [x.grad.is_contiguous() for x in xs]}
+    log(f"  flash_attention's backward at {list(shape)} over {hkv} KV heads, "
+        f"window={window}: {res} (want only {want}, no copy)")
+    if names != sorted(want) or res["copies"] or not all(
+            res["grads_contiguous"]):
+        raise RuntimeError(f"flash_attention's backward at {list(shape)}, "
+                           f"window={window}, ran more than B3 or copied: "
+                           f"{res}")
+    return res
+
+
 def grad_errors(torch, x, r) -> dict:
     """The whole tensor's relative error and its worst row's, against the
     larger of the row's norm and the median row's."""
@@ -692,6 +742,65 @@ def check_flash_bwd(torch, fa, dev, gen, label, bh, sq, sk, d, causal=True,
     if not ok:
         raise RuntimeError(f"flash backward kernel disagrees with its plain "
                            f"version on {label}: {errs}")
+    return errs
+
+
+def check_flash_bwd_views(torch, fa, dev, gen, label, shape, hkv=None,
+                          window=None, misalign=False) -> dict:
+    """Kernel B3 on ``flash_attention``'s fold views at B = 1 ([1, S, H, D]
+    into [H, S, D] with strides (D, H*D)) against B3 on their contiguous
+    copies, on the same inputs and B2's residuals: dk and dv must be
+    bit-equal, and dq, whose f32 reductions land in a varying order, no
+    further from the contiguous path's than that path's three runs lie
+    from each other (by relative norm, with half as much again of room).
+    The views must be taken as they are (``flash_bwd.copies`` unchanged);
+    with ``misalign`` q starts one element past a 16-byte boundary, and
+    only the copying fallback takes it."""
+    _, S, H, D = shape
+    hkv = hkv or H
+    q, dout = (torch.randn((1, S, H, D), generator=gen, device=dev)
+               .to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((1, S, hkv, D), generator=gen, device=dev)
+            .to(torch.bfloat16) for _ in range(2))
+    if misalign:
+        flat = torch.empty(q.numel() + 1, dtype=q.dtype, device=dev)
+        q = flat[1:].view(q.shape).copy_(q)
+    fold = lambda t: t.transpose(1, 2).reshape(t.shape[2], S, D)
+    views = [fold(t) for t in (q, k, v, dout)]
+    flat_ones = [t.contiguous() for t in views]
+    out, m, l = fa.flash_attention_blocks(*flat_ones[:3], 0, 0, True,
+                                          window=window)
+    before = fa.flash_bwd.copies
+    got = fa.flash_bwd(*views[:3], out, m, l, views[3], True, window=window)
+    copies = fa.flash_bwd.copies - before
+    runs = [fa.flash_bwd(*flat_ones[:3], out, m, l, flat_ones[3], True,
+                         window=window) for _ in range(3)]
+    torch.cuda.synchronize()
+
+    def rel(a, b):
+        return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+    spread = max(rel(a[0], b[0]) for i, a in enumerate(runs)
+                 for b in runs[i + 1:])
+    errs = {"copies": copies,
+            "dq_rel": max(rel(got[0], r[0]) for r in runs),
+            "dq_run_to_run": spread,
+            "dk_equal": bool(torch.equal(got[1], runs[0][1])),
+            "dv_equal": bool(torch.equal(got[2], runs[0][2])),
+            "layouts_kept": [tuple(x.stride()) == tuple(t.stride()) for x, t
+                             in zip(got, views)]}
+    ok = errs["dk_equal"] and errs["dv_equal"] \
+        and errs["dq_rel"] <= 1.5 * spread \
+        and (copies >= 1 if misalign else copies == 0) \
+        and all(errs["layouts_kept"][1:]) \
+        and (misalign or errs["layouts_kept"][0])
+    log(f"  flash_bwd on fold views, {label} {list(shape)} over {hkv} KV "
+        f"heads, window={window}, q misaligned={misalign}: {errs} (dk, dv "
+        f"bit-equal; dq within 1.5x the contiguous path's run-to-run; "
+        f"copies {'>= 1' if misalign else '0'})")
+    if not ok:
+        raise RuntimeError(f"B3 on fold views disagrees with B3 on their "
+                           f"contiguous copies on {label}: {errs}")
     return errs
 
 
@@ -6146,6 +6255,18 @@ def main() -> int:
                         128, group=2, window=20000)]
     bwd_rel = max(e[f"{n}_rel"] for e in bwd_errs for n in ("dq", "dk", "dv"))
     bwd_row = max(e[f"{n}_row"] for e in bwd_errs for n in ("dq", "dk", "dv"))
+    # B3 through its operands' strides: flash_attention's fold views
+    bwd_view_errs = [
+        check_flash_bwd_views(torch, fa, dev, gen, "training cell",
+                              FLASH_TRAIN_SHAPE),
+        check_flash_bwd_views(torch, fa, dev, gen, "Trinity window layer",
+                              FLASH_LAYERS_SHAPE, NH // NG, NW),
+        check_flash_bwd_views(torch, fa, dev, gen, "Trinity full layer",
+                              FLASH_LAYERS_SHAPE, NH // NG),
+        check_flash_bwd_views(torch, fa, dev, gen, "ragged", (1, 1000, 8, 64),
+                              2),
+        check_flash_bwd_views(torch, fa, dev, gen, "misaligned q",
+                              (1, 1000, 8, 128), misalign=True)]
 
     # 4. the main path, counted
     log("# phase 4: validator chain")
@@ -6209,6 +6330,14 @@ def main() -> int:
     # the grouped, windowed entry: one B2 and one B3 launch a call
     layers_grad = check_flash_attention_layers(torch, fa, ringattention, dev,
                                                gen)
+    # no layout copy around B3 at both training cells' widths
+    no_copies = [
+        check_flash_attention_no_copies(torch, fa, dev, gen,
+                                        FLASH_TRAIN_SHAPE, FLASH_TRAIN_SHAPE[2]),
+        check_flash_attention_no_copies(torch, fa, dev, gen,
+                                        FLASH_LAYERS_SHAPE, NH // NG, NW),
+        check_flash_attention_no_copies(torch, fa, dev, gen,
+                                        FLASH_LAYERS_SHAPE, NH // NG)]
 
     # 7. timings
     log("# phase 7: timings")
@@ -6263,6 +6392,8 @@ def main() -> int:
         "flash_attention": {"run_shape": flash_run, "long_shape": flash_long,
                             "grad_check": grad_errs,
                             "layers_grad_check": layers_grad,
+                            "bwd_fold_views": bwd_view_errs,
+                            "bwd_no_copies": no_copies,
                             "ptxas_spills": flash_spills,
                             "bwd_train_shape": flash_train_bwd,
                             "bwd_ptxas_spills": flash_bwd_spills,

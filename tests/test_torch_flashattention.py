@@ -22,6 +22,7 @@ from tpu_operator.workloads import flashattention as jax_fa
 from tpu_operator.workloads.ringattention import (
     reference_attention as jax_reference)
 from tpu_operator_torch.convert import to_numpy, to_torch
+from tpu_operator_torch.workloads import attention_reference
 from tpu_operator_torch.workloads import flashattention as fa
 from tpu_operator_torch.workloads.ringattention import reference_attention
 
@@ -228,6 +229,29 @@ class TestFlashAttention:
                 to_numpy(t.grad), np.asarray(want.astype(jnp.float32)),
                 **BF16_GRAD_TOL)
 
+    @pytest.mark.parametrize("group, window", [(4, 24), (4, None), (1, 24)])
+    def test_leaf_grads_at_batch_one_match_the_reference(self, group,
+                                                         window):
+        # B = 1, where the fold is a view: q, k and v as leaves, k and v
+        # over H / group heads, against autograd of the plain f32
+        # reference; each leaf's gradient comes back in its own layout
+        g = torch.Generator().manual_seed(group * 100 + (window or 0))
+        S, H, D = 96, 8, 16
+        q, dout = (torch.randn(1, S, H, D, generator=g) for _ in range(2))
+        k, v = (torch.randn(1, S, H // group, D, generator=g)
+                for _ in range(2))
+        xs = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = fa.flash_attention(*xs, causal=True, window=window)
+        out.backward(dout)
+        want = attention_reference.forward_backward(q, k, v, dout, True,
+                                                    window)
+        np.testing.assert_allclose(to_numpy(out.detach()), to_numpy(want[0]),
+                                   rtol=0, atol=OUT_ATOL)
+        for x, r, name in zip(xs, want[1:], "qkv"):
+            assert x.grad.shape == x.shape and x.grad.is_contiguous(), name
+            np.testing.assert_allclose(to_numpy(x.grad), to_numpy(r),
+                                       err_msg=f"d{name}", **GRAD_TOL)
+
 
 class TestBackwardWrapper:
     """``flash_bwd``: the plain version on a CPU tensor (kernel B3 is held
@@ -255,7 +279,42 @@ class TestBackwardWrapper:
         for a, b in zip(got, want):
             assert a.dtype == b.dtype == dtype
             assert torch.equal(a, b)
-        assert fa.flash_bwd.launches == 0
+        assert fa.flash_bwd.launches == fa.flash_bwd.copies == 0
+
+    @staticmethod
+    def operand(case):
+        """A bf16 [BH, S, D] tensor of each kind B3's rule tells apart."""
+        B, S, H, D = 1, 32, 4, 64
+        if case == "fold view":
+            x = torch.zeros(B, S, H, D, dtype=torch.bfloat16)
+            return x.transpose(1, 2).reshape(B * H, S, D)
+        if case == "contiguous":
+            return torch.zeros(H, S, D, dtype=torch.bfloat16)
+        if case == "last stride":
+            return torch.zeros(H, D, S, dtype=torch.bfloat16).transpose(1, 2)
+        if case == "row stride":
+            return torch.zeros(H, S, D + 1, dtype=torch.bfloat16)[..., :D]
+        assert case == "base"
+        flat = torch.zeros(H * S * D + 1, dtype=torch.bfloat16)
+        return flat[1:].view(H, S, D)
+
+    @pytest.mark.parametrize("case, takes", [
+        ("fold view", True),
+        ("contiguous", True),
+        ("last stride", False),
+        ("row stride", False),
+        ("base", False),
+    ])
+    def test_b3_takes_or_copies(self, case, takes):
+        # which tensors B3's tensor maps and plain loads read as they are;
+        # the others are copied by the fallback, and the copy is taken, as
+        # are gradients allocated in a taken operand's layout
+        t = self.operand(case)
+        assert fa._b3_takes(t) is takes
+        assert fa._b3_takes(fa._aligned(t))
+        if takes:
+            g = torch.empty_like(t)
+            assert g.stride() == t.stride() and fa._b3_takes(g)
 
     @pytest.mark.parametrize("case, match", [
         ("device", "unsupported device"),

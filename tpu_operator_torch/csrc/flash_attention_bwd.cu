@@ -1,6 +1,8 @@
 // Kernel B3: fused attention backward on [BH, S, D] bf16 with a causal
 // mask, for Hopper (sm_90a): dQ, dK, dV from q, k, v, the forward's out
-// and row statistics (m, l) and the upstream gradient dO.
+// and row statistics (m, l) and the upstream gradient dO. Each bf16
+// operand is read or written through its own (bh, row) strides, D
+// contiguous.
 //
 // Replaces no TPU kernel. The JAX package's backward,
 // tpu_operator/workloads/flashattention.py `_flash_bwd_rule` (:169-215),
@@ -72,14 +74,22 @@
 //   tile streams only the Q tiles up to the last query that sees its last
 //   key, and the mask also runs on tiles that reach past the warpgroup's
 //   first key's window. The MHA instantiations keep group 1 and no window
-//   at compile time.
+//   at compile time;
+// - layouts: the TMA maps of Q, dO, K and V take each tensor's (bh, row)
+//   strides as byte strides, and the preprocess (out, dO), the epilogue
+//   (dK, dV) and the postprocess (dQ) address through theirs, passed as
+//   kernel parameters and read only there. At B = 1 the fold of
+//   [1, S, H, D] into [H, S, D] is a view with strides (D, H*D), which B3
+//   reads as it is, and dQ, dK and dV written in the same layout reach
+//   autograd's leaves as [1, S, H, D] tensors with no copy on either side
+//   (FlashAttention-3 reads [B, S, H, D] by strides likewise).
 //
 // cuTensorMapEncodeTiled is a driver-API function; it is reached through
 // the runtime's driver entry point, so the library links no libcuda.
 // Launches on the caller's stream and does not synchronise. The C entry
 // point returns cudaGetLastError() after each launch (or
-// cudaErrorInvalidValue for a size or tensor map it cannot take), so a
-// refused launch is reported.
+// cudaErrorInvalidValue for a size, stride or tensor map it cannot take),
+// so a refused launch is reported.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -116,6 +126,11 @@ constexpr uint32_t kDsBar = 1;   // named barrier: both halves of dS^T written
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kNegInf = -1e30f;  // the forward's NEG_INF
 
+// a [bh, rows, d] operand's strides over bh and over rows, in elements
+struct RowStrides {
+  int64_t bh, row;
+};
+
 template <int D>
 struct Layout {
   static constexpr int kBoxes = D / kBoxCols;
@@ -150,7 +165,8 @@ __global__ void __launch_bounds__(256)
 flash_bwd_pre(const bf16* __restrict__ out, const bf16* __restrict__ dout,
               const float* __restrict__ m, const float* __restrict__ l,
               float* __restrict__ lse2, float* __restrict__ delta,
-              float* __restrict__ dq_acc, int sq, int sq_pad) {
+              float* __restrict__ dq_acc, int sq, int sq_pad,
+              RowStrides out_st, RowStrides dout_st) {
   constexpr int kLanes = D / 8;  // threads a row, 8 columns each
   const int64_t row =
       static_cast<int64_t>(blockIdx.x) * (256 / kLanes) + threadIdx.x / kLanes;
@@ -162,9 +178,10 @@ flash_bwd_pre(const bf16* __restrict__ out, const bf16* __restrict__ dout,
   acc[1] = make_float4(0.f, 0.f, 0.f, 0.f);
   float dot = 0.f;
   if (r < sq) {
-    const int64_t src = (b * sq + r) * D + lane * 8;
-    const uint4 ov = *reinterpret_cast<const uint4*>(out + src);
-    const uint4 gv = *reinterpret_cast<const uint4*>(dout + src);
+    const uint4 ov = *reinterpret_cast<const uint4*>(
+        out + b * out_st.bh + r * out_st.row + lane * 8);
+    const uint4 gv = *reinterpret_cast<const uint4*>(
+        dout + b * dout_st.bh + r * dout_st.row + lane * 8);
     const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
     const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&gv);
 #pragma unroll
@@ -204,7 +221,7 @@ flash_bwd(const __grid_constant__ CUtensorMap q_map,
           const float* __restrict__ lse2, const float* __restrict__ delta,
           float* __restrict__ dq_acc, bf16* __restrict__ dk,
           bf16* __restrict__ dv, int sq, int sk, int causal, float scale,
-          int group, int window) {
+          int group, int window, RowStrides dk_st, RowStrides dv_st) {
   using L = Layout<D>;
   constexpr int kStages = L::kStages;
   extern __shared__ unsigned char smem_raw[];
@@ -481,13 +498,14 @@ flash_bwd(const __grid_constant__ CUtensorMap q_map,
     for (int h = 0; h < 2; ++h) {
       const int kr = key0 + krow + 8 * h;
       if (kr >= sk) continue;
-      const int64_t off = (static_cast<int64_t>(bh_kv) * sk + kr) * D + 2 * qd;
+      bf16* const dk_row = dk + bh_kv * dk_st.bh + kr * dk_st.row + 2 * qd;
+      bf16* const dv_row = dv + bh_kv * dv_st.bh + kr * dv_st.row + 2 * qd;
 #pragma unroll
       for (int i = 0; i < D / 8; ++i) {
-        *reinterpret_cast<uint32_t*>(dk + off + i * 8) =
+        *reinterpret_cast<uint32_t*>(dk_row + i * 8) =
             pack_bf16(dk_acc[4 * i + 2 * h] * scale,
                       dk_acc[4 * i + 2 * h + 1] * scale);
-        *reinterpret_cast<uint32_t*>(dv + off + i * 8) =
+        *reinterpret_cast<uint32_t*>(dv_row + i * 8) =
             pack_bf16(dv_acc[4 * i + 2 * h], dv_acc[4 * i + 2 * h + 1]);
       }
     }
@@ -499,11 +517,12 @@ flash_bwd(const __grid_constant__ CUtensorMap q_map,
 // kernel's warps stage them: float4 jj of lane x of warp w at
 // [w][jj][x], with w = r / 16, x = 4 * (r % 8) + c % 8 / 2, jj = c / 8
 // and entry 2 * (r / 8 % 2) + c % 2 for row r and column c of the tile;
-// rows past sq are skipped
+// rows past sq are skipped, and dq is written through its strides
 template <int D>
 __global__ void __launch_bounds__(256)
 flash_bwd_post(const float* __restrict__ dq_acc, bf16* __restrict__ dq,
-               int64_t rows, int sq, int sq_pad, float scale) {
+               int64_t rows, int sq, int sq_pad, float scale,
+               RowStrides dq_st) {
   const int64_t idx = static_cast<int64_t>(blockIdx.x) * 256 + threadIdx.x;
   if (idx >= rows * (D / 8)) return;
   const int64_t row = idx / (D / 8);
@@ -521,8 +540,8 @@ flash_bwd_post(const float* __restrict__ dq_acc, bf16* __restrict__ dq,
     const float2 x = *reinterpret_cast<const float2*>(src + 4 * qd);
     o[qd] = pack_bf16(x.x * scale, x.y * scale);
   }
-  *reinterpret_cast<uint4*>(dq + row * D + cb * 8) =
-      make_uint4(o[0], o[1], o[2], o[3]);
+  *reinterpret_cast<uint4*>(dq + (row / sq) * dq_st.bh + r * dq_st.row +
+                            cb * 8) = make_uint4(o[0], o[1], o[2], o[3]);
 }
 
 typedef CUresult (*EncodeTiled)(
@@ -550,16 +569,18 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// 3-D map over [bh, rows, d] bf16 (dims innermost first), boxes of
-// [1, box_rows, 64] with the 128-byte swizzle; out-of-range rows read as
-// zeros
+// 3-D map over [bh, rows, d] bf16 (dims innermost first) with the
+// tensor's own strides over rows and bh (elements; TMA takes them in
+// bytes, multiples of 16), boxes of [1, box_rows, 64] with the 128-byte
+// swizzle; out-of-range rows read as zeros
 bool encode_map(EncodeTiled fn, CUtensorMap* map, const void* ptr,
-                int64_t bh, int64_t rows, int64_t d, int box_rows) {
+                int64_t bh, int64_t rows, int64_t d, RowStrides st,
+                int box_rows) {
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d),
                               static_cast<cuuint64_t>(rows),
                               static_cast<cuuint64_t>(bh)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d * 2),
-                                 static_cast<cuuint64_t>(rows * d * 2)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(st.row * 2),
+                                 static_cast<cuuint64_t>(st.bh * 2)};
   const cuuint32_t box[3] = {kBoxCols, static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
@@ -568,19 +589,22 @@ bool encode_map(EncodeTiled fn, CUtensorMap* map, const void* ptr,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// the operands' strides, in the C entry point's order
+enum { kStQ, kStK, kStV, kStOut, kStDout, kStDq, kStDk, kStDv, kOperands };
+
 template <int D, bool kBand>
 int launch(int64_t bh, int64_t sq, int64_t sk, cudaStream_t s, const void* q,
            const void* k, const void* v, const bf16* out, const bf16* dout,
            const float* m, const float* l, bf16* dq, bf16* dk, bf16* dv,
            float* stats, float* dq_acc, int causal, float scale, int group,
-           int window) {
+           int window, const RowStrides* st) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap q_map, do_map, k_map, v_map;
-  if (!encode_map(fn, &q_map, q, bh, sq, D, kBlockQ) ||
-      !encode_map(fn, &do_map, dout, bh, sq, D, kBlockQ) ||
-      !encode_map(fn, &k_map, k, bh / group, sk, D, kBlockK) ||
-      !encode_map(fn, &v_map, v, bh / group, sk, D, kBlockK))
+  if (!encode_map(fn, &q_map, q, bh, sq, D, st[kStQ], kBlockQ) ||
+      !encode_map(fn, &do_map, dout, bh, sq, D, st[kStDout], kBlockQ) ||
+      !encode_map(fn, &k_map, k, bh / group, sk, D, st[kStK], kBlockK) ||
+      !encode_map(fn, &v_map, v, bh / group, sk, D, st[kStV], kBlockK))
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t sq_pad = (sq + kBlockQ - 1) / kBlockQ * kBlockQ;
   float* lse2 = stats;
@@ -590,7 +614,8 @@ int launch(int64_t bh, int64_t sq, int64_t sk, cudaStream_t s, const void* q,
   flash_bwd_pre<D><<<static_cast<unsigned>(bh * sq_pad / (256 / (D / 8))),
                      256, 0, s>>>(out, dout, m, l, lse2, delta, dq_acc,
                                   static_cast<int>(sq),
-                                  static_cast<int>(sq_pad));
+                                  static_cast<int>(sq_pad), st[kStOut],
+                                  st[kStDout]);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
@@ -604,14 +629,14 @@ int launch(int64_t bh, int64_t sq, int64_t sk, cudaStream_t s, const void* q,
   flash_bwd<D, kBand><<<grid, kThreads, kSmem, s>>>(
       q_map, do_map, k_map, v_map, lse2, delta, dq_acc, dk, dv,
       static_cast<int>(sq), static_cast<int>(sk), causal, scale, group,
-      window);
+      window, st[kStDk], st[kStDv]);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
   const int64_t n8 = bh * sq * (D / 8);
   flash_bwd_post<D><<<static_cast<unsigned>((n8 + 255) / 256), 256, 0, s>>>(
       dq_acc, dq, bh * sq, static_cast<int>(sq), static_cast<int>(sq_pad),
-      scale);
+      scale, st[kStDq]);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -620,35 +645,54 @@ int launch_any(int64_t bh, int64_t sq, int64_t sk, cudaStream_t s,
                const void* q, const void* k, const void* v, const bf16* out,
                const bf16* dout, const float* m, const float* l, bf16* dq,
                bf16* dk, bf16* dv, float* stats, float* dq_acc, int causal,
-               float scale, int group, int window) {
+               float scale, int group, int window, const RowStrides* st) {
   if (group > 1 || window > 0)
     return launch<D, true>(bh, sq, sk, s, q, k, v, out, dout, m, l, dq, dk,
-                           dv, stats, dq_acc, causal, scale, group, window);
+                           dv, stats, dq_acc, causal, scale, group, window,
+                           st);
   return launch<D, false>(bh, sq, sk, s, q, k, v, out, dout, m, l, dq, dk, dv,
-                          stats, dq_acc, causal, scale, 1, 0);
+                          stats, dq_acc, causal, scale, 1, 0, st);
 }
 
 }  // namespace
 
 // dq, dk, dv = the attention backward on `stream`: q, out, dout
 // [bh, sq, d], k, v [bh / group, sk, d] bf16, m, l [bh, sq] f32 (the
-// forward's), all contiguous and 16-byte aligned; dq, dk, dv bf16 like q,
-// k, v, dk and dv summed over each K/V row's group of query rows; window
-// > 0 (causal only) as the forward's. Workspace: stats f32 [2, bh, sq_pad]
-// and dq_acc f32 [bh, sq_pad, d], with sq_pad = sq rounded up to a
-// multiple of 64. d is 64 or 128. Returns a cudaError_t.
+// forward's, contiguous); dq, dk, dv bf16 like q, k, v, dk and dv summed
+// over each K/V row's group of query rows; window > 0 (causal only) as the
+// forward's. `strides` holds, for q, k, v, out, dout, dq, dk and dv in that
+// order, the (bh, row) strides in elements, each a multiple of 8 (16
+// bytes): d is contiguous in every operand, and every bf16 base is
+// 16-byte aligned. Workspace: stats f32 [2, bh, sq_pad] and dq_acc f32
+// [bh, sq_pad, d], contiguous, with sq_pad = sq rounded up to a multiple
+// of 64. d is 64 or 128; every tensor and `stream` are on CUDA device
+// `device`. Returns a cudaError_t.
 extern "C" int flash_attention_bwd_bf16(
     const void* q, const void* k, const void* v, const void* out,
     const void* dout, const void* m, const void* l, void* dq, void* dk,
     void* dv, void* stats, void* dq_acc, int64_t bh, int64_t sq, int64_t sk,
     int64_t d, int causal, float scale, int64_t group, int64_t window,
-    void* stream) {
+    const int64_t* strides, int device, void* stream) {
+  if (strides == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  RowStrides st[kOperands];
+  const void* bases[kOperands] = {q, k, v, out, dout, dq, dk, dv};
+  for (int i = 0; i < kOperands; ++i) {
+    st[i] = RowStrides{strides[2 * i], strides[2 * i + 1]};
+    if (st[i].bh < 0 || st[i].row < 0 || st[i].bh % 8 != 0 ||
+        st[i].row % 8 != 0 || reinterpret_cast<uintptr_t>(bases[i]) % 16 != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (bh <= 0 || sq <= 0 || sk <= 0 || bh > 2147483647 ||
       sq > 2147483647 - kBlockQ || (sk + kBlockK - 1) / kBlockK > 65535 ||
       bh * ((sq + kBlockQ - 1) / kBlockQ) * kBlockQ / 16 > 2147483647 ||
       bh * sq * d / 8 / 256 > 2147483647 || group < 1 || bh % group != 0 ||
       window < 0 || window > 2147483647 || (window > 0 && !causal))
     return static_cast<int>(cudaErrorInvalidValue);
+  // the driver's tensor-map encoder needs the device's context current on
+  // this thread, which a thread that has made no CUDA runtime call yet
+  // lacks: autograd's worker thread, when B3 is its first work
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bf16* po = static_cast<const bf16*>(out);
   const bf16* pg = static_cast<const bf16*>(dout);
@@ -663,11 +707,13 @@ extern "C" int flash_attention_bwd_bf16(
     case 64:
       return launch_any<64>(bh, sq, sk, s, q, k, v, po, pg, pm, pl, pdq, pdk,
                             pdv, pst, pacc, causal, scale,
-                            static_cast<int>(group), static_cast<int>(window));
+                            static_cast<int>(group), static_cast<int>(window),
+                            st);
     case 128:
       return launch_any<128>(bh, sq, sk, s, q, k, v, po, pg, pm, pl, pdq, pdk,
                              pdv, pst, pacc, causal, scale,
-                             static_cast<int>(group), static_cast<int>(window));
+                             static_cast<int>(group), static_cast<int>(window),
+                             st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

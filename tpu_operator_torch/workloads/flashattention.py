@@ -27,7 +27,8 @@ Under ``torch.profiler`` each entry records a ``tpu_operator_torch.*``
 span (``backend.span``): ``flash_attention`` holds ``.fold`` (the
 layout change to [BH, S, D]), ``flash_attention_blocks`` (checks, its
 ``.align`` copies, allocations, its ``.launch``) and ``.unfold``;
-``flash_bwd`` covers the backward, with its ``.align`` copies and its
+``flash_bwd`` covers the backward, with its ``.align`` (where B3 takes
+its operands, copying only those no tensor map can take) and its
 ``.launch``.
 """
 
@@ -76,6 +77,7 @@ _BWD_SIGNATURES = {
         ctypes.c_int64,                                      # d
         ctypes.c_int, ctypes.c_float,                        # causal, scale
         ctypes.c_int64, ctypes.c_int64,                      # group, window
+        ctypes.POINTER(ctypes.c_int64), ctypes.c_int,        # strides, device
         ctypes.c_void_p)),                                   # stream
 }
 
@@ -212,6 +214,24 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def _b3_takes(t: torch.Tensor) -> bool:
+    """Whether kernel B3 reads the bf16 [BH, S, D] tensor ``t`` as it is:
+    D's stride 1, its (bh, row) strides positive multiples of 8 elements
+    (16 bytes, as a TMA map needs), and its base on a 16-byte boundary.
+    At B = 1 the fold of [1, S, H, D] is such a view."""
+    return t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and all(
+        s > 0 and s % 8 == 0 for s in t.stride()[:-1])
+
+
+def _b3_operand(t: torch.Tensor) -> torch.Tensor:
+    """``t`` where B3 takes it as it is, else ``_aligned``'s copy,
+    counted in ``flash_bwd.copies``."""
+    if _b3_takes(t):
+        return t
+    flash_bwd.copies += 1
+    return _aligned(t)
+
+
 def flash_attention_blocks(
         q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q_offset: int, k_offset: int, causal: bool = True,
@@ -335,7 +355,12 @@ def flash_bwd(q, k, v, out, m, l, dout, causal: bool, chunk: int = 512,
     On a CUDA tensor this launches kernel B3 (and counts the call in
     ``flash_bwd.launches``), which takes bf16 q, k, v, out and dout with D
     in ``KERNEL_HEAD_DIMS`` and f32 m and l; ``chunk`` is the plain
-    version's step over keys, used on a CPU tensor. Calls with a window
+    version's step over keys, used on a CPU tensor. B3 reads each of q, k,
+    v, out and dout through its own strides, and copies only one it cannot
+    take (``_b3_takes``), counted in ``flash_bwd.copies``; dq, dk and dv
+    come back in q's, k's and v's layouts. At B = 1 the fold of
+    ``flash_attention`` is such a view, so no copy is made before B3 and
+    autograd keeps the gradients it hands each leaf. Calls with a window
     and with a group above 1 are counted in ``.window_calls`` and
     ``.grouped_calls`` on both paths.
     """
@@ -350,18 +375,23 @@ def flash_bwd(q, k, v, out, m, l, dout, causal: bool, chunk: int = 512,
                                        chunk, window)
         bh, sq, d = q.shape
         sk = k.shape[1]
-        with span("flash_bwd.align"):
-            q, k, v, out, dout = (_aligned(t) for t in (q, k, v, out, dout))
-            m, l = m.contiguous(), l.contiguous()
-        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
         if bh == 0 or sq == 0 or sk == 0:
-            return dq.zero_(), dk.zero_(), dv.zero_()
+            return tuple(torch.zeros_like(t) for t in (q, k, v))
+        with span("flash_bwd.align"):
+            q, k, v, out, dout = (_b3_operand(t)
+                                  for t in (q, k, v, out, dout))
+            m, l = m.contiguous(), l.contiguous()
+        # in the operands' layouts (empty_like keeps a dense view's strides)
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
         sq_pad = -(-sq // B3_Q_TILE) * B3_Q_TILE
         stats = torch.empty((2, bh, sq_pad), dtype=torch.float32,
                             device=q.device)
         dq_acc = torch.empty((bh, sq_pad, d), dtype=torch.float32,
                              device=q.device)
         lib = build.load("flash_attention_bwd", _BWD_SIGNATURES)
+        strides = (ctypes.c_int64 * 16)(*(
+            n for t in (q, k, v, out, dout, dq, dk, dv)
+            for n in t.stride()[:2]))
         with span("flash_bwd.launch"), torch.cuda.device(q.device):
             stream = torch.cuda.current_stream(q.device).cuda_stream
             err = lib.flash_attention_bwd_bf16(
@@ -369,7 +399,8 @@ def flash_bwd(q, k, v, out, m, l, dout, causal: bool, chunk: int = 512,
                 dout.data_ptr(), m.data_ptr(), l.data_ptr(), dq.data_ptr(),
                 dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
                 dq_acc.data_ptr(), bh, sq, sk, d, 1 if causal else 0,
-                1.0 / math.sqrt(d), group, win, stream)
+                1.0 / math.sqrt(d), group, win, strides, q.device.index,
+                stream)
         if err != 0:
             raise RuntimeError(f"flash attention backward kernel launch "
                                f"failed: cudaError {err}")
@@ -380,6 +411,7 @@ def flash_bwd(q, k, v, out, m, l, dout, causal: bool, chunk: int = 512,
 flash_bwd.launches = 0
 flash_bwd.window_calls = 0
 flash_bwd.grouped_calls = 0
+flash_bwd.copies = 0
 
 
 class _FlashAttention(torch.autograd.Function):
