@@ -834,16 +834,14 @@ def long_context_path(torch, mesh, ra, n_cards: int) -> tuple:
     return [rep.result for rep in ranks[0]], flash.row_rel_err, launches
 
 
-def flash_bound(spec, bh, s, d) -> tuple:
-    """(bound_ms, bound_by) of one causal [bh, s, d] bf16 attend: two
-    products over the s*(s+1)/2 visible pairs against the bf16 peak, and
-    q, k, v read and out written in bf16, m and l written in f32."""
-    flops = 4.0 * bh * d * s * (s + 1) / 2
-    nbytes = 4 * bh * s * d * 2 + 2 * bh * s * 4
-    ops_ms = flops / (spec.peak_bf16_tflops * 1e12) * 1e3
-    bytes_ms = nbytes / (spec.hbm_bw_gbps * 1e9) * 1e3
-    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
-                                   else "bytes")
+def card_peak(spec):
+    """The card's peaks as the benchmark's yardstick takes them
+    (``perfbench/roofline.py``), from its published spec."""
+    from perfbench import roofline
+
+    return roofline.Peak(bf16_flops=spec.peak_bf16_tflops * 1e12,
+                         hbm_bytes_s=spec.hbm_bw_gbps * 1e9,
+                         nvlink_bytes_s=0.0)
 
 
 def time_flash(torch, fa, dev, gen, spec, shape, plain_iters) -> dict:
@@ -867,13 +865,17 @@ def time_flash(torch, fa, dev, gen, spec, shape, plain_iters) -> dict:
     kernel_runs = [cuda_ms(torch, kernel), cuda_ms(torch, kernel)]
     plain_runs.append(cuda_ms(torch, plain, iters=plain_iters, warmup=1))
     library_ms = cuda_ms(torch, library)
-    bound_ms, bound_by = flash_bound(spec, bh, S, D)
+    from perfbench import roofline
+
+    bound_s, bound_by = roofline.flash_bound(card_peak(spec), bh, S, D)
+    bound_ms = bound_s * 1e3
     ms = min(kernel_runs)
     return {"shape": list(shape), "ms": ms, "ms_runs": kernel_runs,
             "plain_ms": min(plain_runs), "plain_ms_runs": plain_runs,
             "library_ms": library_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "fraction_of_bound": bound_ms / ms,
-            "tflops": 4.0 * bh * D * S * (S + 1) / 2 / (ms * 1e-3) / 1e12}
+            "tflops": roofline.attention_fwd_flops(bh, S, D)
+            / (ms * 1e-3) / 1e12}
 
 
 def time_flash_bwd(torch, fa, dev, gen, spec, shape) -> dict:
@@ -903,8 +905,10 @@ def time_flash_bwd(torch, fa, dev, gen, spec, shape) -> dict:
     kernel_runs = [cuda_ms(torch, kernel), cuda_ms(torch, kernel)]
     plain_runs.append(cuda_ms(torch, plain, iters=2, warmup=1))
     library_ms = cuda_ms(torch, library)
-    flops = 2.5 * 4.0 * bh * D * S * (S + 1) / 2
-    bound_ms = flops / (spec.peak_bf16_tflops * 1e12) * 1e3
+    from perfbench import roofline
+
+    flops = roofline.attention_bwd_flops(bh, S, D)
+    bound_ms = flops / card_peak(spec).bf16_flops * 1e3
     ms = min(kernel_runs)
     return {"shape": list(shape), "ms": ms, "ms_runs": kernel_runs,
             "plain_ms": min(plain_runs), "plain_ms_runs": plain_runs,
@@ -923,9 +927,7 @@ def time_flash_layers(torch, fa, dev, gen, spec) -> dict:
 
     B, S, H, D = FLASH_LAYERS_SHAPE
     bh, g = B * H, FLASH_LAYERS_GROUP
-    peak = roofline.Peak(bf16_flops=spec.peak_bf16_tflops * 1e12,
-                         hbm_bytes_s=spec.hbm_bw_gbps * 1e9,
-                         nvlink_bytes_s=0.0)
+    peak = card_peak(spec)
     q, k, v = flash_inputs(torch, dev, gen, bh, S, S, D, g)
     dout = torch.randn((bh, S, D), generator=gen, device=dev).to(
         torch.bfloat16)

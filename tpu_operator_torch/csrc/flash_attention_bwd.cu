@@ -107,7 +107,6 @@ typedef __nv_bfloat16 bf16;
 constexpr int kBlockK = 128;     // keys per block
 constexpr int kBlockQ = 64;      // query rows per tile (B3_Q_TILE in Python)
 constexpr int kWgKeys = 64;      // keys per consumer warpgroup
-constexpr int kBoxCols = 64;     // bf16 columns per box: the 128-byte swizzle span
 constexpr int kKBox = kBlockK * kBoxCols * 2;   // a [128, 64] box of K or V
 constexpr int kQBox = kBlockQ * kBoxCols * 2;   // a [64, 64] box of Q or dO
 constexpr int kDsTile = kBlockK * kBlockQ * 2;  // dS^T: [128 keys, 64 queries]
@@ -125,11 +124,6 @@ static_assert(kProducerRegs * 128 + kConsumerRegs * kConsumers <=
 constexpr uint32_t kDsBar = 1;   // named barrier: both halves of dS^T written
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kNegInf = -1e30f;  // the forward's NEG_INF
-
-// a [bh, rows, d] operand's strides over bh and over rows, in elements
-struct RowStrides {
-  int64_t bh, row;
-};
 
 template <int D>
 struct Layout {
@@ -544,51 +538,6 @@ flash_bwd_post(const float* __restrict__ dq_acc, bf16* __restrict__ dq,
                             cb * 8) = make_uint4(o[0], o[1], o[2], o[3]);
 }
 
-typedef CUresult (*EncodeTiled)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through the runtime's driver entry point
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// 3-D map over [bh, rows, d] bf16 (dims innermost first) with the
-// tensor's own strides over rows and bh (elements; TMA takes them in
-// bytes, multiples of 16), boxes of [1, box_rows, 64] with the 128-byte
-// swizzle; out-of-range rows read as zeros
-bool encode_map(EncodeTiled fn, CUtensorMap* map, const void* ptr,
-                int64_t bh, int64_t rows, int64_t d, RowStrides st,
-                int box_rows) {
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d),
-                              static_cast<cuuint64_t>(rows),
-                              static_cast<cuuint64_t>(bh)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(st.row * 2),
-                                 static_cast<cuuint64_t>(st.bh * 2)};
-  const cuuint32_t box[3] = {kBoxCols, static_cast<cuuint32_t>(box_rows), 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 // the operands' strides, in the C entry point's order
 enum { kStQ, kStK, kStV, kStOut, kStDout, kStDq, kStDk, kStDv, kOperands };
 
@@ -640,20 +589,6 @@ int launch(int64_t bh, int64_t sq, int64_t sk, cudaStream_t s, const void* q,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
-int launch_any(int64_t bh, int64_t sq, int64_t sk, cudaStream_t s,
-               const void* q, const void* k, const void* v, const bf16* out,
-               const bf16* dout, const float* m, const float* l, bf16* dq,
-               bf16* dk, bf16* dv, float* stats, float* dq_acc, int causal,
-               float scale, int group, int window, const RowStrides* st) {
-  if (group > 1 || window > 0)
-    return launch<D, true>(bh, sq, sk, s, q, k, v, out, dout, m, l, dq, dk,
-                           dv, stats, dq_acc, causal, scale, group, window,
-                           st);
-  return launch<D, false>(bh, sq, sk, s, q, k, v, out, dout, m, l, dq, dk, dv,
-                          stats, dq_acc, causal, scale, 1, 0, st);
-}
-
 }  // namespace
 
 // dq, dk, dv = the attention backward on `stream`: q, out, dout
@@ -685,14 +620,11 @@ extern "C" int flash_attention_bwd_bf16(
   if (bh <= 0 || sq <= 0 || sk <= 0 || bh > 2147483647 ||
       sq > 2147483647 - kBlockQ || (sk + kBlockK - 1) / kBlockK > 65535 ||
       bh * ((sq + kBlockQ - 1) / kBlockQ) * kBlockQ / 16 > 2147483647 ||
-      bh * sq * d / 8 / 256 > 2147483647 || group < 1 || bh % group != 0 ||
-      window < 0 || window > 2147483647 || (window > 0 && !causal))
+      bh * sq * d / 8 / 256 > 2147483647 ||
+      !group_window_ok(bh, group, window, causal))
     return static_cast<int>(cudaErrorInvalidValue);
-  // the driver's tensor-map encoder needs the device's context current on
-  // this thread, which a thread that has made no CUDA runtime call yet
-  // lacks: autograd's worker thread, when B3 is its first work
-  const cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const int err = bind_device(device);
+  if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bf16* po = static_cast<const bf16*>(out);
   const bf16* pg = static_cast<const bf16*>(dout);
@@ -703,18 +635,9 @@ extern "C" int flash_attention_bwd_bf16(
   bf16* pdv = static_cast<bf16*>(dv);
   float* pst = static_cast<float*>(stats);
   float* pacc = static_cast<float*>(dq_acc);
-  switch (d) {
-    case 64:
-      return launch_any<64>(bh, sq, sk, s, q, k, v, po, pg, pm, pl, pdq, pdk,
-                            pdv, pst, pacc, causal, scale,
-                            static_cast<int>(group), static_cast<int>(window),
-                            st);
-    case 128:
-      return launch_any<128>(bh, sq, sk, s, q, k, v, po, pg, pm, pl, pdq, pdk,
-                             pdv, pst, pacc, causal, scale,
-                             static_cast<int>(group), static_cast<int>(window),
-                             st);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return dispatch(d, group, window, [&](auto dim, auto band, int g, int w) {
+    return launch<decltype(dim)::value, decltype(band)::value>(
+        bh, sq, sk, s, q, k, v, po, pg, pm, pl, pdq, pdk, pdv, pst, pacc,
+        causal, scale, g, w, st);
+  });
 }

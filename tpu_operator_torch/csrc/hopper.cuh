@@ -1,8 +1,10 @@
 // Hopper building blocks for the hand-written kernels of this package:
 // mbarriers, TMA tile and bulk loads, named barriers, register
 // rebalancing, wgmma (sm_90a) and f32 reductions into global memory, as
-// inline PTX. Header only; a kernel source includes it
-// and kernels/build.py hashes it with the source.
+// inline PTX; and the host half of a launch (tensor maps, the device
+// bind, the dispatch over head width and instantiation). Header only; a
+// kernel source includes it and kernels/build.py hashes it with the
+// source.
 //
 // Conventions that the helpers assume:
 // - shared addresses are 32-bit (__cvta_generic_to_shared);
@@ -17,7 +19,11 @@
 
 #pragma once
 
+#include <cuda.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace hopper {
 
@@ -62,6 +68,8 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
 }
 
 // ---- TMA -------------------------------------------------------------------
+
+constexpr int kBoxCols = 64;  // bf16 columns per box: the 128-byte swizzle span
 
 // box of a 3-D tensor map at coordinates (c0 innermost, c1, c2) into
 // shared memory at `dst`, completing transactions on `bar`; rows outside
@@ -285,3 +293,101 @@ __device__ __forceinline__ void bulk_wait() {
 }
 
 }  // namespace hopper
+
+// ---- host: tensor maps, the device, the dispatch ---------------------------
+// In the including source's anonymous namespace, where its kernels are: a
+// kernel that takes RowStrides by value is named with
+// (anonymous namespace)::RowStrides like its source's other types, and
+// each library keeps its own copy of the encoder's entry point.
+
+namespace {
+
+// a [bh, rows, d] operand's strides over bh and over rows, in elements
+struct RowStrides {
+  int64_t bh, row;
+};
+
+typedef CUresult (*EncodeTiled)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so a
+// library links no libcuda
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// 3-D map over [bh, rows, d] bf16 (dims innermost first) with the
+// tensor's own strides over rows and bh (elements; TMA takes them in
+// bytes, multiples of 16), boxes of [1, box_rows, 64] with the 128-byte
+// swizzle; out-of-range rows read as zeros
+bool encode_map(EncodeTiled fn, CUtensorMap* map, const void* ptr,
+                int64_t bh, int64_t rows, int64_t d, RowStrides st,
+                int box_rows) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(bh)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(st.row * 2),
+                                 static_cast<cuuint64_t>(st.bh * 2)};
+  const cuuint32_t box[3] = {hopper::kBoxCols,
+                             static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// makes `device` current on this thread. The driver's tensor-map encoder
+// needs the device's context current, which a thread that has made no
+// CUDA runtime call yet lacks: autograd's worker thread, when a kernel's
+// launch is its first work. Returns a cudaError_t
+int bind_device(int device) { return static_cast<int>(cudaSetDevice(device)); }
+
+// whether the kernels take these K/V groups and this window: bh a
+// multiple of group >= 1, and a window of at most 2^31 - 1 keys, with
+// the causal mask only
+bool group_window_ok(int64_t bh, int64_t group, int64_t window, int causal) {
+  return group >= 1 && bh % group == 0 && window >= 0 &&
+         window <= 2147483647 && (window == 0 || causal);
+}
+
+// f(std::integral_constant<int, D>, std::bool_constant<kBand>, group,
+// window) for d of 64 or 128: the band instantiation (grouped KV heads or
+// a sliding window) with the call's group and window, else the MHA one
+// with 1 and 0. cudaErrorInvalidValue for another d
+template <class F>
+int dispatch(int64_t d, int64_t group, int64_t window, F&& f) {
+  const int g = static_cast<int>(group), w = static_cast<int>(window);
+  const bool band = group > 1 || window > 0;
+  using D64 = std::integral_constant<int, 64>;
+  using D128 = std::integral_constant<int, 128>;
+  switch (d) {
+    case 64:
+      return band ? f(D64(), std::true_type(), g, w)
+                  : f(D64(), std::false_type(), 1, 0);
+    case 128:
+      return band ? f(D128(), std::true_type(), g, w)
+                  : f(D128(), std::false_type(), 1, 0);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace

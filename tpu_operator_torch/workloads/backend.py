@@ -17,6 +17,8 @@ device *initialization* the same discipline:
   device where CUDA is unusable raises instead of running on the CPU.
 - ``span()`` — a named span on the hot path, recorded only while
   ``torch.profiler`` is profiling.
+- ``launch()`` — the one way a hand-written kernel of ``csrc/`` is
+  called: its library loaded, its device current, its stream last.
 
 No k8s dependencies: this runs inside validator pods and on bare hosts.
 """
@@ -32,6 +34,8 @@ from dataclasses import dataclass, field
 from typing import List, Optional
 
 import torch
+
+from ..kernels import build
 
 _DEVICE_GLOBS = ("/dev/nvidia[0-9]*", "/dev/nvidiactl", "/dev/nvidia-uvm")
 
@@ -196,3 +200,18 @@ def span(name: str):
     if torch.autograd._profiler_enabled():
         return torch.profiler.record_function(SPAN_PREFIX + name)
     return _NO_SPAN
+
+
+def launch(kernel: str, signatures: build.Signatures, entry: str, device,
+           *args, what: str) -> None:
+    """Call the C entry point ``entry`` of ``csrc/<kernel>.cu`` (built and
+    loaded with ``signatures`` at first use) with ``args`` and ``device``'s
+    current stream last, with ``device`` current. A nonzero return, a
+    cudaError_t, raises RuntimeError ``"<what> launch failed: cudaError
+    <n>"``."""
+    lib = build.load(kernel, signatures)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, entry)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: cudaError {err}")

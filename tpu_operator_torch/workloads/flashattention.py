@@ -41,8 +41,7 @@ from typing import Tuple
 
 import torch
 
-from ..kernels import build
-from .backend import span
+from .backend import launch, span
 
 NEG_INF = -1e30
 
@@ -59,7 +58,7 @@ _SIGNATURES = {
         ctypes.c_int64, ctypes.c_int64,                      # q/k offset
         ctypes.c_int, ctypes.c_float,                        # causal, scale
         ctypes.c_int64, ctypes.c_int64,                      # group, window
-        ctypes.c_void_p)),                                   # stream
+        ctypes.c_int, ctypes.c_void_p)),                     # device, stream
 }
 
 # kernel B3's query tile: its row statistics and dQ accumulator are
@@ -273,18 +272,13 @@ def flash_attention_blocks(
         l = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
         if bh == 0 or sq == 0:
             return out, m, l
-        lib = build.load("flash_attention", _SIGNATURES)
-        with span("flash_attention_blocks.launch"), \
-                torch.cuda.device(q.device):
-            stream = torch.cuda.current_stream(q.device).cuda_stream
-            err = lib.flash_attention_fwd_bf16(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                out.data_ptr(), m.data_ptr(), l.data_ptr(),
-                bh, sq, sk, d, int(q_offset), int(k_offset),
-                1 if causal else 0, 1.0 / math.sqrt(d), group, win, stream)
-        if err != 0:
-            raise RuntimeError(f"flash attention kernel launch failed: "
-                               f"cudaError {err}")
+        with span("flash_attention_blocks.launch"):
+            launch("flash_attention", _SIGNATURES, "flash_attention_fwd_bf16",
+                   q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                   out.data_ptr(), m.data_ptr(), l.data_ptr(),
+                   bh, sq, sk, d, int(q_offset), int(k_offset),
+                   1 if causal else 0, 1.0 / math.sqrt(d), group, win,
+                   q.device.index, what="flash attention kernel")
         flash_attention_blocks.launches += 1
         return out, m, l
 
@@ -388,22 +382,18 @@ def flash_bwd(q, k, v, out, m, l, dout, causal: bool, chunk: int = 512,
                             device=q.device)
         dq_acc = torch.empty((bh, sq_pad, d), dtype=torch.float32,
                              device=q.device)
-        lib = build.load("flash_attention_bwd", _BWD_SIGNATURES)
         strides = (ctypes.c_int64 * 16)(*(
             n for t in (q, k, v, out, dout, dq, dk, dv)
             for n in t.stride()[:2]))
-        with span("flash_bwd.launch"), torch.cuda.device(q.device):
-            stream = torch.cuda.current_stream(q.device).cuda_stream
-            err = lib.flash_attention_bwd_bf16(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                dout.data_ptr(), m.data_ptr(), l.data_ptr(), dq.data_ptr(),
-                dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
-                dq_acc.data_ptr(), bh, sq, sk, d, 1 if causal else 0,
-                1.0 / math.sqrt(d), group, win, strides, q.device.index,
-                stream)
-        if err != 0:
-            raise RuntimeError(f"flash attention backward kernel launch "
-                               f"failed: cudaError {err}")
+        with span("flash_bwd.launch"):
+            launch("flash_attention_bwd", _BWD_SIGNATURES,
+                   "flash_attention_bwd_bf16", q.device,
+                   q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                   dout.data_ptr(), m.data_ptr(), l.data_ptr(), dq.data_ptr(),
+                   dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
+                   dq_acc.data_ptr(), bh, sq, sk, d, 1 if causal else 0,
+                   1.0 / math.sqrt(d), group, win, strides, q.device.index,
+                   what="flash attention backward kernel")
         flash_bwd.launches += 1
         return dq, dk, dv
 

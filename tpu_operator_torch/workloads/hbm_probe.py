@@ -21,8 +21,7 @@ from typing import Optional
 
 import torch
 
-from ..kernels import build
-from .backend import resolve_device, span, synchronize
+from .backend import launch, resolve_device, span, synchronize
 from .hardware import chip_spec_for, device_kind
 
 _SIGNATURES = {
@@ -72,14 +71,8 @@ def triad_(a: torch.Tensor, b: torch.Tensor, alpha: float = 2.0) -> torch.Tensor
         _check(a, b)
         if a.device.type == "cpu":
             return triad_reference_(a, b, alpha)
-        lib = build.load("triad", _SIGNATURES)
-        with torch.cuda.device(a.device):
-            stream = torch.cuda.current_stream(a.device).cuda_stream
-            err = lib.triad_f32(a.data_ptr(), b.data_ptr(), float(alpha),
-                                a.numel(), stream)
-        if err != 0:
-            raise RuntimeError(f"triad kernel launch failed: "
-                               f"cudaError {err}")
+        launch("triad", _SIGNATURES, "triad_f32", a.device, a.data_ptr(),
+               b.data_ptr(), float(alpha), a.numel(), what="triad kernel")
         triad_.launches += 1
         return a
 
