@@ -292,6 +292,10 @@ FLASH_BWD_RTOL = 2.0 ** -7
 FLASH_BWD_ROW_RTOL = 2.0 ** -6
 # the training cell's shape: forward and backward of [1, 16384, 16, 128]
 FLASH_TRAIN_SHAPE = (1, 16384, 16, 128)
+# the prefill cells' widths: [1, 65536, 16, 128], and the mixed replay's
+# shortest call, 4095 positions (ragged Q tiles and K/V chunks)
+FLASH_PREFILL_SHAPE = (1, 65536, 16, 128)
+FLASH_MIXLEN_SHORT_SHAPE = (1, 4095, 16, 128)
 # Trinity-Mini's attention period (attn.trinity-train-16k): [1, 16384, 32,
 # 128] over 4 KV heads, three layers under a window of 2048 keys, one full
 FLASH_LAYERS_SHAPE = (1, 16384, 32, 128)
@@ -647,6 +651,75 @@ def check_flash_attention_layers(torch, fa, ra, dev, gen,
     return out
 
 
+def device_ops(torch, fn) -> list:
+    """The names of the device operations (kernels, copies, memsets) that
+    ``fn()`` runs, under ``torch.profiler``, sorted, without their
+    arguments."""
+    act = torch.profiler.ProfilerActivity
+    with tempfile.TemporaryDirectory() as tmp:
+        with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    return sorted({re.sub(r"^void |\(anonymous namespace\)::|\(.*$", "",
+                          e.get("name", ""))
+                   for e in events if e.get("cat") in (
+                       "kernel", "gpu_memcpy", "gpu_memset")})
+
+
+def check_flash_fwd_no_copies(torch, fa, dev, gen, label, shape, hkv,
+                              window=None) -> dict:
+    """``flash_attention``'s forward at B = 1 under ``torch.profiler``:
+    on the card only B2 (``flash_fwd``: no copy, no elementwise kernel)
+    runs, ``flash_attention_blocks.copies`` does not rise, and the
+    unfolded output is contiguous. B2's out, m and l on the fold views
+    must be bit-equal to B2's on contiguous copies of the same inputs,
+    and so must the unfolded output to that out."""
+    _, S, H, D = shape
+    q = torch.randn((1, S, H, D), generator=gen, device=dev).to(
+        torch.bfloat16)
+    k, v = (torch.randn((1, S, hkv, D), generator=gen, device=dev)
+            .to(torch.bfloat16) for _ in range(2))
+    fold = lambda t: t.transpose(1, 2).reshape(t.shape[2], S, D)
+    views = [fold(t) for t in (q, k, v)]
+    before = fa.flash_attention_blocks.copies
+    found = {}
+
+    def forward():
+        with torch.no_grad():
+            found["o"] = fa.flash_attention(q, k, v, causal=True,
+                                            window=window)
+
+    names = device_ops(torch, forward)
+    got = fa.flash_attention_blocks(*views, 0, 0, True, window=window)
+    copies = fa.flash_attention_blocks.copies - before
+    want = fa.flash_attention_blocks(*(t.contiguous() for t in views), 0, 0,
+                                     True, window=window)
+    torch.cuda.synchronize()
+    o = found.pop("o")
+    res = {"device_ops": names, "copies": copies,
+           "out_m_l_equal": [bool(torch.equal(a, b))
+                             for a, b in zip(got, want)],
+           "unfolded_equal": bool(torch.equal(fold(o), want[0])),
+           "unfolded_contiguous": o.is_contiguous(),
+           "out_layout": list(got[0].stride())}
+    kernel = "flash_fwd<%d, %s>" % (D, "true" if hkv < H or window else
+                                    "false")
+    log(f"  flash_attention's forward on fold views, {label} {list(shape)} "
+        f"over {hkv} KV heads, window={window}: {res} (want only "
+        f"[{kernel}], no copy, bit-equal to B2 on contiguous copies)")
+    if names != [kernel] or copies or not all(res["out_m_l_equal"]) \
+            or not res["unfolded_equal"] or not res["unfolded_contiguous"]:
+        raise RuntimeError(f"flash_attention's forward at {list(shape)}, "
+                           f"window={window}, ran more than B2, copied or "
+                           f"disagrees with B2 on contiguous copies: {res}")
+    del q, k, v, views, got, want, o
+    return res
+
+
 def check_flash_attention_no_copies(torch, fa, dev, gen, shape, hkv,
                                     window=None) -> dict:
     """``flash_attention``'s backward at B = 1 under ``torch.profiler``:
@@ -663,19 +736,7 @@ def check_flash_attention_no_copies(torch, fa, dev, gen, shape, hkv,
     o = fa.flash_attention(*xs, causal=True, window=window)
     torch.cuda.synchronize()
     before = fa.flash_bwd.copies
-    act = torch.profiler.ProfilerActivity
-    with tempfile.TemporaryDirectory() as tmp:
-        with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
-            o.backward(dout)
-            torch.cuda.synchronize()
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f).get("traceEvents", [])
-    names = sorted({re.sub(r"^void |\(anonymous namespace\)::|\(.*$", "",
-                           e.get("name", ""))
-                    for e in events if e.get("cat") in (
-                        "kernel", "gpu_memcpy", "gpu_memset")})
+    names = device_ops(torch, lambda: o.backward(dout))
     want = ["flash_bwd<%d, %s>" % (D, "true" if hkv < H or window else
                                    "false"),
             "flash_bwd_post<%d>" % D, "flash_bwd_pre<%d>" % D]
@@ -963,8 +1024,10 @@ def time_flash_layers(torch, fa, dev, gen, spec) -> dict:
 def time_ring_parts(torch, fa, ra, dev, gen) -> dict:
     """The one-card flash ring's call at the long shape, part by part
     with CUDA events: the fold of q, k, v to contiguous [B*H, S, D] (the
-    copies that ``flash_attention_blocks`` makes of the folded views),
-    kernel B2, the unfold of its output (out * l back to [B, S, H, D]),
+    layout copies B2 no longer needs, kept here as a yardstick: at B = 1
+    ``flash_attention_blocks`` reads the folded views as they are), kernel
+    B2 on the contiguous folds, the unfold of its output (out * l back to
+    [B, S, H, D]),
     the merge into the running state, and the rest of the call (the
     running state's zeros and the final division)."""
     B, S, H, D = FLASH_LONG_SHAPE
@@ -6332,6 +6395,20 @@ def main() -> int:
     # the grouped, windowed entry: one B2 and one B3 launch a call
     layers_grad = check_flash_attention_layers(torch, fa, ringattention, dev,
                                                gen)
+    # no layout copy before B2 at every attention cell's widths, out in
+    # q's layout
+    fwd_no_copies = [
+        check_flash_fwd_no_copies(torch, fa, dev, gen, "prefill-64k",
+                                  FLASH_PREFILL_SHAPE, FLASH_PREFILL_SHAPE[2]),
+        check_flash_fwd_no_copies(torch, fa, dev, gen, "prefill-mixlen",
+                                  FLASH_MIXLEN_SHORT_SHAPE,
+                                  FLASH_MIXLEN_SHORT_SHAPE[2]),
+        check_flash_fwd_no_copies(torch, fa, dev, gen, "train-16k",
+                                  FLASH_TRAIN_SHAPE, FLASH_TRAIN_SHAPE[2]),
+        check_flash_fwd_no_copies(torch, fa, dev, gen, "Trinity window layer",
+                                  FLASH_LAYERS_SHAPE, NH // NG, NW),
+        check_flash_fwd_no_copies(torch, fa, dev, gen, "Trinity full layer",
+                                  FLASH_LAYERS_SHAPE, NH // NG)]
     # no layout copy around B3 at both training cells' widths
     no_copies = [
         check_flash_attention_no_copies(torch, fa, dev, gen,
@@ -6395,6 +6472,7 @@ def main() -> int:
                             "grad_check": grad_errs,
                             "layers_grad_check": layers_grad,
                             "bwd_fold_views": bwd_view_errs,
+                            "fwd_no_copies": fwd_no_copies,
                             "bwd_no_copies": no_copies,
                             "ptxas_spills": flash_spills,
                             "bwd_train_shape": flash_train_bwd,

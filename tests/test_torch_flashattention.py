@@ -149,6 +149,20 @@ class TestBlocks:
         for a, b in zip(got, want):
             assert torch.equal(a, b)
         assert fa.flash_attention_blocks.launches == before == 0
+        assert fa.flash_attention_blocks.copies == 0
+
+    @pytest.mark.parametrize("heads", [16, 4])
+    def test_out_in_a_fold_views_layout_unfolds_contiguous(self, heads):
+        # B2 writes out with empty_like of the fold view of q: a layout the
+        # rule takes, which flash_attention's unfold turns into a
+        # contiguous [1, S, H, D] with no copy
+        S, D = 32, 64
+        x = torch.zeros(1, S, heads, D, dtype=torch.bfloat16)
+        out = torch.empty_like(x.transpose(1, 2).reshape(heads, S, D))
+        assert fa._tma_takes(out) and out.stride() == (D, heads * D, 1)
+        unfolded = out.reshape(1, heads, S, D).transpose(1, 2)
+        assert unfolded.is_contiguous()
+        assert unfolded.data_ptr() == out.data_ptr()
 
     @pytest.mark.parametrize("case, match", [
         ("rank", r"\[BH, S, D\]"),
@@ -280,41 +294,62 @@ class TestBackwardWrapper:
             assert a.dtype == b.dtype == dtype
             assert torch.equal(a, b)
         assert fa.flash_bwd.launches == fa.flash_bwd.copies == 0
+        assert fa.flash_attention_blocks.copies == 0
 
     @staticmethod
     def operand(case):
-        """A bf16 [BH, S, D] tensor of each kind B3's rule tells apart."""
-        B, S, H, D = 1, 32, 4, 64
-        if case == "fold view":
-            x = torch.zeros(B, S, H, D, dtype=torch.bfloat16)
-            return x.transpose(1, 2).reshape(B * H, S, D)
+        """A bf16 [BH, S, D] tensor of each kind the kernels' rule tells
+        apart: the fold views are q, k or v of 16 heads, and k or v of 4
+        KV heads, at B = 1."""
+        B, S, H, D = 1, 32, 16, 64
+        if case in ("fold view", "GQA fold view"):
+            h = H if case == "fold view" else 4
+            x = torch.zeros(B, S, h, D, dtype=torch.bfloat16)
+            return x.transpose(1, 2).reshape(B * h, S, D)
         if case == "contiguous":
             return torch.zeros(H, S, D, dtype=torch.bfloat16)
         if case == "last stride":
             return torch.zeros(H, D, S, dtype=torch.bfloat16).transpose(1, 2)
         if case == "row stride":
             return torch.zeros(H, S, D + 1, dtype=torch.bfloat16)[..., :D]
+        if case == "size-1 stride":
+            # contiguous to torch, whose strides skip a dimension of one
+            return torch.zeros(S * D, dtype=torch.bfloat16).as_strided(
+                (1, S, D), (7, D, 1))
         assert case == "base"
         flat = torch.zeros(H * S * D + 1, dtype=torch.bfloat16)
         return flat[1:].view(H, S, D)
 
-    @pytest.mark.parametrize("case, takes", [
-        ("fold view", True),
-        ("contiguous", True),
-        ("last stride", False),
-        ("row stride", False),
-        ("base", False),
-    ])
-    def test_b3_takes_or_copies(self, case, takes):
-        # which tensors B3's tensor maps and plain loads read as they are;
-        # the others are copied by the fallback, and the copy is taken, as
-        # are gradients allocated in a taken operand's layout
+    RULE_CASES = [("fold view", True), ("GQA fold view", True),
+                  ("contiguous", True), ("last stride", False),
+                  ("row stride", False), ("size-1 stride", False),
+                  ("base", False)]
+
+    # B3's cases keep their ids; B2's, which shares the rule, add theirs
+    @pytest.mark.parametrize("entry, case, takes", [
+        pytest.param("flash_bwd", case, takes,
+                     id=f"{case}-{takes}") for case, takes in RULE_CASES] + [
+        pytest.param("flash_attention_blocks", case, takes,
+                     id=f"flash_attention_blocks-{case}-{takes}")
+        for case, takes in RULE_CASES])
+    def test_b3_takes_or_copies(self, entry, case, takes, monkeypatch):
+        # which tensors B2's and B3's tensor maps and plain accesses read as
+        # they are; the others are copied by the fallback, counted by the
+        # entry that launches, and the copy is taken, as are outputs
+        # allocated in a taken operand's layout
+        entries = (fa.flash_attention_blocks, fa.flash_bwd)
+        for fn in entries:
+            monkeypatch.setattr(fn, "copies", 0)
         t = self.operand(case)
-        assert fa._b3_takes(t) is takes
-        assert fa._b3_takes(fa._aligned(t))
+        assert fa._tma_takes(t) is takes
+        got = fa._tma_operand(t, getattr(fa, entry))
+        assert (got is t) is takes and torch.equal(got, t)
+        assert fa._tma_takes(got) and fa._tma_takes(fa._aligned(t))
+        assert [fn.copies for fn in entries] == [
+            int(not takes and fn.__name__ == entry) for fn in entries]
         if takes:
             g = torch.empty_like(t)
-            assert g.stride() == t.stride() and fa._b3_takes(g)
+            assert g.stride() == t.stride() and fa._tma_takes(g)
 
     @pytest.mark.parametrize("case, match", [
         ("device", "unsupported device"),

@@ -608,15 +608,10 @@ extern "C" int flash_attention_bwd_bf16(
     void* dv, void* stats, void* dq_acc, int64_t bh, int64_t sq, int64_t sk,
     int64_t d, int causal, float scale, int64_t group, int64_t window,
     const int64_t* strides, int device, void* stream) {
-  if (strides == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   RowStrides st[kOperands];
   const void* bases[kOperands] = {q, k, v, out, dout, dq, dk, dv};
-  for (int i = 0; i < kOperands; ++i) {
-    st[i] = RowStrides{strides[2 * i], strides[2 * i + 1]};
-    if (st[i].bh < 0 || st[i].row < 0 || st[i].bh % 8 != 0 ||
-        st[i].row % 8 != 0 || reinterpret_cast<uintptr_t>(bases[i]) % 16 != 0)
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (!read_strides(strides, bases, kOperands, st))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (bh <= 0 || sq <= 0 || sk <= 0 || bh > 2147483647 ||
       sq > 2147483647 - kBlockQ || (sk + kBlockK - 1) / kBlockK > 65535 ||
       bh * ((sq + kBlockQ - 1) / kBlockQ) * kBlockQ / 16 > 2147483647 ||

@@ -1,10 +1,10 @@
 // Hopper building blocks for the hand-written kernels of this package:
 // mbarriers, TMA tile and bulk loads, named barriers, register
 // rebalancing, wgmma (sm_90a) and f32 reductions into global memory, as
-// inline PTX; and the host half of a launch (tensor maps, the device
-// bind, the dispatch over head width and instantiation). Header only; a
-// kernel source includes it and kernels/build.py hashes it with the
-// source.
+// inline PTX; and the host half of a launch (the operands' strides,
+// tensor maps, the device bind, the dispatch over head width and
+// instantiation). Header only; a kernel source includes it and
+// kernels/build.py hashes it with the source.
 //
 // Conventions that the helpers assume:
 // - shared addresses are 32-bit (__cvta_generic_to_shared);
@@ -352,6 +352,22 @@ bool encode_map(EncodeTiled fn, CUtensorMap* map, const void* ptr,
             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the (bh, row) strides of n operands from `strides` (elements, a pair an
+// operand, in the C entry point's order) into st: false unless each is a
+// non-negative multiple of 8 elements (16 bytes, as a TMA map and the
+// 16-byte accesses need) and each operand's base is 16-byte aligned
+bool read_strides(const int64_t* strides, const void* const* bases, int n,
+                  RowStrides* st) {
+  if (strides == nullptr) return false;
+  for (int i = 0; i < n; ++i) {
+    st[i] = RowStrides{strides[2 * i], strides[2 * i + 1]};
+    if (st[i].bh < 0 || st[i].row < 0 || st[i].bh % 8 != 0 ||
+        st[i].row % 8 != 0 || reinterpret_cast<uintptr_t>(bases[i]) % 16 != 0)
+      return false;
+  }
+  return true;
 }
 
 // makes `device` current on this thread. The driver's tensor-map encoder

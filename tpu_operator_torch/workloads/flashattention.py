@@ -23,13 +23,18 @@ repeats the TPU kernel's arithmetic chunk by chunk, in f32. The backward,
 CUDA tensor and runs its plain version, ``flash_bwd_reference`` (the JAX
 package's ``_flash_bwd_rule`` in torch ops), on a CPU tensor.
 
+Both kernels read each bf16 operand through its own (bh, row) strides
+(``_tma_takes``), and copy only one that no tensor map can take. At B = 1
+the fold of ``flash_attention`` is such a view, so no layout copy is made
+on either side of B2 or B3.
+
 Under ``torch.profiler`` each entry records a ``tpu_operator_torch.*``
 span (``backend.span``): ``flash_attention`` holds ``.fold`` (the
 layout change to [BH, S, D]), ``flash_attention_blocks`` (checks, its
-``.align`` copies, allocations, its ``.launch``) and ``.unfold``;
-``flash_bwd`` covers the backward, with its ``.align`` (where B3 takes
-its operands, copying only those no tensor map can take) and its
-``.launch``.
+``.align``, allocations, its ``.launch``) and ``.unfold``; ``flash_bwd``
+covers the backward, with its ``.align`` and its ``.launch``. An
+``.align`` holds the rule and the fallback's copies of operands it
+refuses.
 """
 
 from __future__ import annotations
@@ -58,7 +63,8 @@ _SIGNATURES = {
         ctypes.c_int64, ctypes.c_int64,                      # q/k offset
         ctypes.c_int, ctypes.c_float,                        # causal, scale
         ctypes.c_int64, ctypes.c_int64,                      # group, window
-        ctypes.c_int, ctypes.c_void_p)),                     # device, stream
+        ctypes.POINTER(ctypes.c_int64), ctypes.c_int,        # strides, device
+        ctypes.c_void_p)),                                   # stream
 }
 
 # kernel B3's query tile: its row statistics and dQ accumulator are
@@ -208,27 +214,34 @@ def _count(fn, group: int, window: int) -> None:
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """Contiguous, on a 16-byte boundary (a TMA tensor map's base)."""
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
+    """The fallback's copy: a new contiguous tensor, whose base the
+    allocator puts on a 16-byte boundary (a TMA tensor map's base)."""
+    return t.clone(memory_format=torch.contiguous_format)
 
 
-def _b3_takes(t: torch.Tensor) -> bool:
-    """Whether kernel B3 reads the bf16 [BH, S, D] tensor ``t`` as it is:
-    D's stride 1, its (bh, row) strides positive multiples of 8 elements
-    (16 bytes, as a TMA map needs), and its base on a 16-byte boundary.
-    At B = 1 the fold of [1, S, H, D] is such a view."""
+def _tma_takes(t: torch.Tensor) -> bool:
+    """Whether kernels B2 and B3 read or write the bf16 [BH, S, D] tensor
+    ``t`` as it is: D's stride 1, its (bh, row) strides positive multiples
+    of 8 elements (16 bytes, as a TMA map needs), and its base on a
+    16-byte boundary. At B = 1 the fold of [1, S, H, D] is such a view."""
     return t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and all(
         s > 0 and s % 8 == 0 for s in t.stride()[:-1])
 
 
-def _b3_operand(t: torch.Tensor) -> torch.Tensor:
-    """``t`` where B3 takes it as it is, else ``_aligned``'s copy,
-    counted in ``flash_bwd.copies``."""
-    if _b3_takes(t):
+def _tma_operand(t: torch.Tensor, fn) -> torch.Tensor:
+    """``t`` where ``_tma_takes`` it as it is, else ``_aligned``'s copy,
+    counted in ``fn.copies`` (``fn`` the entry that launches)."""
+    if _tma_takes(t):
         return t
-    flash_bwd.copies += 1
+    fn.copies += 1
     return _aligned(t)
+
+
+def _row_strides(*ts: torch.Tensor):
+    """The (bh, row) strides of ``ts`` in elements, in order, as the C
+    entry points take them."""
+    return (ctypes.c_int64 * (2 * len(ts)))(*(
+        n for t in ts for n in t.stride()[:2]))
 
 
 def flash_attention_blocks(
@@ -251,8 +264,13 @@ def flash_attention_blocks(
     ``flash_attention_blocks.launches``), which takes bf16 with D in
     ``KERNEL_HEAD_DIMS`` and always works in 128-row Q tiles and 128-key
     chunks; ``q_tile``/``chunk`` are the plain version's loop steps, used
-    on a CPU tensor. Calls with a window and with a group above 1 are
-    counted in ``.window_calls`` and ``.grouped_calls`` on both paths.
+    on a CPU tensor. B2 reads each of q, k and v through its own strides,
+    and copies only one it cannot take (``_tma_takes``), counted in
+    ``flash_attention_blocks.copies``; out comes back in q's layout. At
+    B = 1 the fold of ``flash_attention`` is such a view, so no copy is
+    made before B2 and out unfolds to a contiguous [1, S, H, D]. Calls
+    with a window and with a group above 1 are counted in
+    ``.window_calls`` and ``.grouped_calls`` on both paths.
     """
     with span("flash_attention_blocks"):
         group, win = _contract("flash_attention_blocks", q, k, v,
@@ -264,9 +282,10 @@ def flash_attention_blocks(
                                                     chunk, window)
         bh, sq, d = q.shape
         sk = k.shape[1]
-        # at B == 1 the fold is a view, and these are its copies
         with span("flash_attention_blocks.align"):
-            q, k, v = _aligned(q), _aligned(k), _aligned(v)
+            q, k, v = (_tma_operand(t, flash_attention_blocks)
+                       for t in (q, k, v))
+        # in q's layout (empty_like keeps a dense view's strides)
         out = torch.empty_like(q)
         m = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
         l = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
@@ -278,7 +297,8 @@ def flash_attention_blocks(
                    out.data_ptr(), m.data_ptr(), l.data_ptr(),
                    bh, sq, sk, d, int(q_offset), int(k_offset),
                    1 if causal else 0, 1.0 / math.sqrt(d), group, win,
-                   q.device.index, what="flash attention kernel")
+                   _row_strides(q, k, v, out), q.device.index,
+                   what="flash attention kernel")
         flash_attention_blocks.launches += 1
         return out, m, l
 
@@ -286,6 +306,7 @@ def flash_attention_blocks(
 flash_attention_blocks.launches = 0
 flash_attention_blocks.window_calls = 0
 flash_attention_blocks.grouped_calls = 0
+flash_attention_blocks.copies = 0
 
 
 # ---------------------------------------------------------------------------
@@ -351,7 +372,7 @@ def flash_bwd(q, k, v, out, m, l, dout, causal: bool, chunk: int = 512,
     in ``KERNEL_HEAD_DIMS`` and f32 m and l; ``chunk`` is the plain
     version's step over keys, used on a CPU tensor. B3 reads each of q, k,
     v, out and dout through its own strides, and copies only one it cannot
-    take (``_b3_takes``), counted in ``flash_bwd.copies``; dq, dk and dv
+    take (``_tma_takes``), counted in ``flash_bwd.copies``; dq, dk and dv
     come back in q's, k's and v's layouts. At B = 1 the fold of
     ``flash_attention`` is such a view, so no copy is made before B3 and
     autograd keeps the gradients it hands each leaf. Calls with a window
@@ -372,7 +393,7 @@ def flash_bwd(q, k, v, out, m, l, dout, causal: bool, chunk: int = 512,
         if bh == 0 or sq == 0 or sk == 0:
             return tuple(torch.zeros_like(t) for t in (q, k, v))
         with span("flash_bwd.align"):
-            q, k, v, out, dout = (_b3_operand(t)
+            q, k, v, out, dout = (_tma_operand(t, flash_bwd)
                                   for t in (q, k, v, out, dout))
             m, l = m.contiguous(), l.contiguous()
         # in the operands' layouts (empty_like keeps a dense view's strides)
@@ -382,9 +403,6 @@ def flash_bwd(q, k, v, out, m, l, dout, causal: bool, chunk: int = 512,
                             device=q.device)
         dq_acc = torch.empty((bh, sq_pad, d), dtype=torch.float32,
                              device=q.device)
-        strides = (ctypes.c_int64 * 16)(*(
-            n for t in (q, k, v, out, dout, dq, dk, dv)
-            for n in t.stride()[:2]))
         with span("flash_bwd.launch"):
             launch("flash_attention_bwd", _BWD_SIGNATURES,
                    "flash_attention_bwd_bf16", q.device,
@@ -392,7 +410,9 @@ def flash_bwd(q, k, v, out, m, l, dout, causal: bool, chunk: int = 512,
                    dout.data_ptr(), m.data_ptr(), l.data_ptr(), dq.data_ptr(),
                    dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
                    dq_acc.data_ptr(), bh, sq, sk, d, 1 if causal else 0,
-                   1.0 / math.sqrt(d), group, win, strides, q.device.index,
+                   1.0 / math.sqrt(d), group, win,
+                   _row_strides(q, k, v, out, dout, dq, dk, dv),
+                   q.device.index,
                    what="flash attention backward kernel")
         flash_bwd.launches += 1
         return dq, dk, dv
