@@ -300,6 +300,14 @@ FLASH_MIXLEN_SHORT_SHAPE = (1, 4095, 16, 128)
 # 128] over 4 KV heads, three layers under a window of 2048 keys, one full
 FLASH_LAYERS_SHAPE = (1, 16384, 32, 128)
 FLASH_LAYERS_GROUP, FLASH_LAYERS_WINDOW = 8, 2048
+# MiMo-V2-Flash's attention period (attn.mimo-prefill-mixlen): 64 query
+# heads, keys 192 wide over values 128 wide; its full layer over 4 KV
+# heads, its window layers over 8 under a 128-key window with a sink a
+# head. Phase 6 runs the cell's shortest prompt, 8191 positions; phase 7
+# times B2 at 16384
+MIMO_HEADS, MIMO_D, MIMO_DV = 64, 192, 128
+MIMO_FULL_KV, MIMO_SWA_KV, MIMO_WINDOW = 4, 8, 128
+MIMO_CHECK_SEQ, MIMO_TIME_SEQ = 8191, 16384
 
 
 # the burn-in: TP and FSDP losses of one step on one batch agree within
@@ -384,8 +392,10 @@ def check_triad(torch, hbm_probe, dev, gen, shape, offset: int) -> float:
 
 
 # a flash kernel's instantiations: head width, and whether it is the band
-# variant (grouped KV heads, a sliding window) or the MHA one
+# variant (grouped KV heads, a sliding window, a sink) or the MHA one; B2
+# adds keys 192 wide over values 128 wide, a band one alone
 FLASH_INSTANTIATIONS = ("64", "128", "64.band", "128.band")
+FLASH_FWD_INSTANTIATIONS = FLASH_INSTANTIATIONS + ("192x128.band",)
 # registers a thread that ptxas reports for the MHA instantiations of B2
 # and B3: a block of 384 threads, one a multiprocessor, starts with 65536
 # / 384 rounded down to a multiple of 8, and setmaxnreg moves them between
@@ -398,17 +408,24 @@ FLASH_MHA_REGISTERS = 168
 def check_flash_build(log_text: str, kernel: str = "flash_fwd") -> dict:
     """ptxas's report of a flash kernel (``flash_fwd``, B2, or
     ``flash_bwd``, B3): bytes spilled (stores, loads) and registers a
-    thread per instantiation, keyed by head width and ``.band`` for the
-    band variant. Fails unless all four are there with nothing spilled
-    and the MHA ones at ``FLASH_MHA_REGISTERS``, where ptxas ignored
+    thread per instantiation, keyed by head width (``<d>x<dv>`` where the
+    values are narrower) and ``.band`` for the band variant. Fails unless
+    all of the kernel's instantiations are there with nothing spilled and
+    the MHA ones at ``FLASH_MHA_REGISTERS``, where ptxas ignored
     setmaxnreg (C7508) or where it serialised the wgmma for want of
     registers (C7512)."""
+    instantiations = (FLASH_FWD_INSTANTIATIONS if kernel == "flash_fwd"
+                      else FLASH_INSTANTIATIONS)
     spills, regs, name, last = {}, {}, None, None
     for line in log_text.splitlines():
         if "Function properties for" in line or "Compiling entry" in line:
-            found = re.search(kernel + r"ILi(\d+)ELb([01])E", line)
-            name = (found.group(1) + (".band" if found.group(2) == "1"
-                                      else "")) if found else None
+            found = re.search(kernel + r"ILi(\d+)E(?:Li(\d+)E)?Lb([01])E",
+                              line)
+            name = None
+            if found:
+                d, dv, band = found.groups()
+                name = (d if dv in (None, d) else f"{d}x{dv}") + (
+                    ".band" if band == "1" else "")
         elif name is not None and "spill stores" in line:
             spills[name] = tuple(int(n) for n in re.findall(
                 r"(\d+) bytes spill (?:stores|loads)", line))
@@ -424,24 +441,32 @@ def check_flash_build(log_text: str, kernel: str = "flash_fwd") -> dict:
         raise RuntimeError(f"ptxas ignored setmaxnreg in {kernel}")
     if "C7512" in log_text:
         raise RuntimeError(f"ptxas serialised the wgmma of {kernel}")
-    if sorted(spills) != sorted(FLASH_INSTANTIATIONS) \
+    if sorted(spills) != sorted(instantiations) \
             or any(any(v) for v in spills.values()):
         raise RuntimeError(f"{kernel} spills or lacks an instantiation: "
                            f"{spills}")
-    moved = {k: regs.get(k) for k in FLASH_INSTANTIATIONS
+    moved = {k: regs.get(k) for k in instantiations
              if "band" not in k and regs.get(k) != FLASH_MHA_REGISTERS}
     if moved:
         raise RuntimeError(f"{kernel}'s MHA registers a thread moved from "
                            f"{FLASH_MHA_REGISTERS}: {moved}")
     return {k: {"spills": spills[k], "registers": regs.get(k)}
-            for k in FLASH_INSTANTIATIONS}
+            for k in instantiations}
 
 
-def flash_inputs(torch, dev, gen, bh, sq, sk, d, group=1):
-    """q [bh, sq, d] and k, v [bh / group, sk, d], bf16."""
-    return tuple(torch.randn((n, s, d), generator=gen, device=dev)
+def flash_inputs(torch, dev, gen, bh, sq, sk, d, group=1, dv=None):
+    """q [bh, sq, d], k [bh / group, sk, d] and v [bh / group, sk, dv]
+    (dv = d by default), bf16."""
+    return tuple(torch.randn((n, s, w), generator=gen, device=dev)
                  .to(torch.bfloat16)
-                 for n, s in ((bh, sq), (bh // group, sk), (bh // group, sk)))
+                 for n, s, w in ((bh, sq, d), (bh // group, sk, d),
+                                 (bh // group, sk, dv or d)))
+
+
+def flash_sinks(torch, dev, gen, heads):
+    """f32 [heads] sink logits, uniform in [2, 6] nats, as the MiMo cell
+    draws them: a window row's sink holds 4-65% of its softmax's mass."""
+    return torch.rand(heads, generator=gen, device=dev) * 4 + 2
 
 
 def out_errors(ra, o, ro) -> dict:
@@ -469,25 +494,30 @@ def require_flash_close(label, errs) -> None:
 
 def check_flash(torch, fa, ra, dev, gen, label, bh, sq, sk, d, q_offset=0,
                 k_offset=0, causal=True, dead_rows=0, group=1,
-                window=None) -> dict:
+                window=None, dv=None, sinks=False) -> dict:
     """Kernel vs plain version on seeded bf16 inputs; returns the errors.
     The first ``dead_rows`` rows see no key: there out == 0, l == 0 and
-    m == -1e30 exactly. ``group`` query rows share each K/V row, and
-    ``window`` is the sliding window's keys."""
-    q, k, v = flash_inputs(torch, dev, gen, bh, sq, sk, d, group)
+    m == -1e30 exactly (with sinks m == the row's sink and l == 1).
+    ``group`` query rows share each K/V row, ``window`` is the sliding
+    window's keys, ``dv`` the values' width (d by default), and ``sinks``
+    gives each row a sink logit."""
+    q, k, v = flash_inputs(torch, dev, gen, bh, sq, sk, d, group, dv)
+    s = flash_sinks(torch, dev, gen, bh) if sinks else None
     o, m, l = fa.flash_attention_blocks(q, k, v, q_offset, k_offset, causal,
-                                        window=window)
+                                        window=window, sinks=s)
     ro, rm, rl = fa.flash_attention_blocks_reference(
         q, k, v, q_offset, k_offset, causal, q_tile=4096 // group,
-        window=window)
+        window=window, sinks=s)
     torch.cuda.synchronize()
     if dead_rows:
+        dead_m = fa.NEG_INF if s is None else s[:, None]
         exact = (bool((o[:, :dead_rows] == 0).all())
-                 and bool((l[:, :dead_rows] == 0).all())
-                 and bool((m[:, :dead_rows] == fa.NEG_INF).all())
+                 and bool((l[:, :dead_rows] == (0 if s is None else 1)).all())
+                 and bool((m[:, :dead_rows] == dead_m).all())
                  and bool((l[:, dead_rows:] > 0).all()))
-        log(f"  flash {label}: rows 0..{dead_rows - 1} out==0, l==0, "
-            f"m==-1e30 exactly and later rows live: {exact}")
+        log(f"  flash {label}: rows 0..{dead_rows - 1} out==0, l==0 (1 "
+            f"with sinks), m==-1e30 (the sink) exactly and later rows "
+            f"live: {exact}")
         if not exact:
             raise RuntimeError(f"flash kernel: the dead rows of {label} are "
                                f"not exactly empty")
@@ -495,9 +525,10 @@ def check_flash(torch, fa, ra, dev, gen, label, bh, sq, sk, d, q_offset=0,
     errs = dict(out_errors(ra, o, ro), m=(m - rm).abs().max().item(),
                 l_rel=((l - rl).abs()[live] / rl[live]).max().item()
                 if bool(live.any()) else (l - rl).abs().max().item())
-    require_flash_close(f"{label} [{bh}, {sq}|{sk}, {d}] offsets="
-                        f"({q_offset}, {k_offset}) causal={causal} group="
-                        f"{group} window={window}", errs)
+    require_flash_close(f"{label} [{bh}, {sq}|{sk}, {d}|{dv or d}] "
+                        f"offsets=({q_offset}, {k_offset}) causal={causal} "
+                        f"group={group} window={window} sinks={sinks}",
+                        errs)
     return errs
 
 
@@ -671,48 +702,65 @@ def device_ops(torch, fn) -> list:
 
 
 def check_flash_fwd_no_copies(torch, fa, dev, gen, label, shape, hkv,
-                              window=None) -> dict:
+                              window=None, dv=None, sinks=False) -> dict:
     """``flash_attention``'s forward at B = 1 under ``torch.profiler``:
     on the card only B2 (``flash_fwd``: no copy, no elementwise kernel)
-    runs, ``flash_attention_blocks.copies`` does not rise, and the
-    unfolded output is contiguous. B2's out, m and l on the fold views
-    must be bit-equal to B2's on contiguous copies of the same inputs,
-    and so must the unfolded output to that out."""
+    runs, ``flash_attention_blocks.copies`` does not rise, the unfolded
+    output is contiguous [1, S, H, DV], and the call is counted once in
+    ``.split_calls`` where the values (``dv`` wide) are narrower than the
+    keys and in ``.sink_calls`` with ``sinks``. B2's out, m and l on the
+    fold views must be bit-equal to B2's on contiguous copies of the same
+    inputs, and so must the unfolded output to that out."""
     _, S, H, D = shape
+    DV = dv or D
     q = torch.randn((1, S, H, D), generator=gen, device=dev).to(
         torch.bfloat16)
-    k, v = (torch.randn((1, S, hkv, D), generator=gen, device=dev)
-            .to(torch.bfloat16) for _ in range(2))
-    fold = lambda t: t.transpose(1, 2).reshape(t.shape[2], S, D)
+    k, v = (torch.randn((1, S, hkv, w), generator=gen, device=dev)
+            .to(torch.bfloat16) for w in (D, DV))
+    s = flash_sinks(torch, dev, gen, H) if sinks else None
+    fold = lambda t: t.transpose(1, 2).reshape(t.shape[2], S, t.shape[3])
     views = [fold(t) for t in (q, k, v)]
-    before = fa.flash_attention_blocks.copies
+    counters = ("copies", "split_calls", "sink_calls")
+    before = {n: getattr(fa.flash_attention_blocks, n) for n in counters}
     found = {}
 
     def forward():
         with torch.no_grad():
             found["o"] = fa.flash_attention(q, k, v, causal=True,
-                                            window=window)
+                                            window=window, sinks=s)
 
     names = device_ops(torch, forward)
-    got = fa.flash_attention_blocks(*views, 0, 0, True, window=window)
-    copies = fa.flash_attention_blocks.copies - before
+    counts = {n: getattr(fa.flash_attention_blocks, n) - before[n]
+              for n in counters}
+    got = fa.flash_attention_blocks(*views, 0, 0, True, window=window,
+                                    sinks=s)
+    copies = fa.flash_attention_blocks.copies - before["copies"]
     want = fa.flash_attention_blocks(*(t.contiguous() for t in views), 0, 0,
-                                     True, window=window)
+                                     True, window=window, sinks=s)
     torch.cuda.synchronize()
     o = found.pop("o")
-    res = {"device_ops": names, "copies": copies,
+    res = {"device_ops": names, "copies": copies, "counters": counts,
            "out_m_l_equal": [bool(torch.equal(a, b))
                              for a, b in zip(got, want)],
            "unfolded_equal": bool(torch.equal(fold(o), want[0])),
            "unfolded_contiguous": o.is_contiguous(),
+           "unfolded_shape": list(o.shape),
            "out_layout": list(got[0].stride())}
-    kernel = "flash_fwd<%d, %s>" % (D, "true" if hkv < H or window else
-                                    "false")
+    if DV == D:
+        kernel = "flash_fwd<%d, %d, %s>" % (
+            D, D, "true" if hkv < H or window or sinks else "false")
+    else:
+        kernel = "flash_fwd<%d, %d, true>" % (D, DV)
+    want_counts = {"copies": 0, "split_calls": int(DV != D),
+                   "sink_calls": int(sinks)}
     log(f"  flash_attention's forward on fold views, {label} {list(shape)} "
-        f"over {hkv} KV heads, window={window}: {res} (want only "
-        f"[{kernel}], no copy, bit-equal to B2 on contiguous copies)")
-    if names != [kernel] or copies or not all(res["out_m_l_equal"]) \
-            or not res["unfolded_equal"] or not res["unfolded_contiguous"]:
+        f"over {hkv} KV heads of {D}|{DV}, window={window}, sinks={sinks}: "
+        f"{res} (want only [{kernel}], counters {want_counts}, bit-equal "
+        f"to B2 on contiguous copies)")
+    if names != [kernel] or copies or counts != want_counts \
+            or not all(res["out_m_l_equal"]) or not res["unfolded_equal"] \
+            or not res["unfolded_contiguous"] \
+            or list(o.shape) != [1, S, H, DV]:
         raise RuntimeError(f"flash_attention's forward at {list(shape)}, "
                            f"window={window}, ran more than B2, copied or "
                            f"disagrees with B2 on contiguous copies: {res}")
@@ -1019,6 +1067,34 @@ def time_flash_layers(torch, fa, dev, gen, spec) -> dict:
     log(f"  flash layers at {list(FLASH_LAYERS_SHAPE)} over {bh // g} KV "
         f"heads: {out}")
     return {"shape": list(FLASH_LAYERS_SHAPE), "group": g, **out}
+
+
+def time_flash_split(torch, fa, dev, gen, spec) -> dict:
+    """Kernel B2 at MiMo-V2-Flash's widths, [1, 16384, 64, 192] with
+    values 128 wide: its full layer over 4 KV heads, and its window layer
+    over 8 under a 128-key window with sinks, each against its bound
+    (``perfbench/roofline_split.py``). No library call is timed beside
+    it: SDPA's fused kernels take no values narrower than keys, nor
+    sinks, and its plain one would hold [64, 16384, 16384] scores."""
+    from perfbench import roofline_split
+
+    S, H, d, dv = MIMO_TIME_SEQ, MIMO_HEADS, MIMO_D, MIMO_DV
+    peak = card_peak(spec)
+    out = {}
+    for name, hkv, w, sinks in (("full", MIMO_FULL_KV, None, False),
+                                ("window", MIMO_SWA_KV, MIMO_WINDOW, True)):
+        q, k, v = flash_inputs(torch, dev, gen, H, S, S, d, H // hkv, dv)
+        s = flash_sinks(torch, dev, gen, H) if sinks else None
+        ms = min(cuda_ms(torch, lambda: fa.flash_attention_blocks(
+            q, k, v, 0, 0, True, window=w, sinks=s)) for _ in range(2))
+        bound, by = roofline_split.split_fwd_bound(peak, H, hkv, S, d, dv,
+                                                   w, sinks)
+        out[name] = {"kv_heads": hkv, "window": w, "sinks": sinks, "ms": ms,
+                     "bound_ms": bound * 1e3, "bound_by": by,
+                     "fraction_of_bound": bound * 1e3 / ms}
+        del q, k, v
+    log(f"  flash at MiMo-V2-Flash's widths [1, {S}, {H}, {d}|{dv}]: {out}")
+    return {"shape": [1, S, H, d, dv], **out}
 
 
 def time_ring_parts(torch, fa, ra, dev, gen) -> dict:
@@ -6286,7 +6362,28 @@ def main() -> int:
                     600, 128, q_offset=2000, k_offset=1700, group=2,
                     window=500),
         check_flash(torch, fa, ra, dev, gen, "window past S", 8, 4160, 4160,
-                    64, group=8, window=20000)]
+                    64, group=8, window=20000),
+        # keys wider than values and sinks: MiMo-V2-Flash's period, and
+        # the sink on the (128, 128) and (64, 64) band instantiations
+        check_flash(torch, fa, ra, dev, gen, "MiMo full layer", MIMO_HEADS,
+                    MIMO_CHECK_SEQ, MIMO_CHECK_SEQ, MIMO_D,
+                    group=MIMO_HEADS // MIMO_FULL_KV, dv=MIMO_DV),
+        check_flash(torch, fa, ra, dev, gen, "MiMo window layer",
+                    MIMO_HEADS, MIMO_CHECK_SEQ, MIMO_CHECK_SEQ, MIMO_D,
+                    group=MIMO_HEADS // MIMO_SWA_KV, window=MIMO_WINDOW,
+                    dv=MIMO_DV, sinks=True),
+        check_flash(torch, fa, ra, dev, gen, "split, window, ragged", 8,
+                    1000, 1000, 192, group=2, window=300, dv=128,
+                    sinks=True),
+        check_flash(torch, fa, ra, dev, gen, "split, ring hop", 8, 1000, 600,
+                    192, q_offset=2000, k_offset=1700, group=2, dv=128),
+        check_flash(torch, fa, ra, dev, gen, "split, sinks, dead rows", 8,
+                    1000, 1000, 192, q_offset=1700, k_offset=1760,
+                    dead_rows=60, group=2, dv=128, sinks=True),
+        check_flash(torch, fa, ra, dev, gen, "sinks at 128", 32, 2048,
+                    2048, 128, group=8, window=2048, sinks=True),
+        check_flash(torch, fa, ra, dev, gen, "sinks at 64", 8, 1000, 1000,
+                    64, sinks=True)]
     flash_err = max(e["out"] for e in flash_errs)
     flash_row_rel = max(e["out_row_rel"] for e in flash_errs)
     check_flash_future_block(torch, fa, dev, gen, B * H, S, D)
@@ -6408,7 +6505,15 @@ def main() -> int:
         check_flash_fwd_no_copies(torch, fa, dev, gen, "Trinity window layer",
                                   FLASH_LAYERS_SHAPE, NH // NG, NW),
         check_flash_fwd_no_copies(torch, fa, dev, gen, "Trinity full layer",
-                                  FLASH_LAYERS_SHAPE, NH // NG)]
+                                  FLASH_LAYERS_SHAPE, NH // NG),
+        check_flash_fwd_no_copies(
+            torch, fa, dev, gen, "MiMo full layer",
+            (1, MIMO_CHECK_SEQ, MIMO_HEADS, MIMO_D), MIMO_FULL_KV,
+            dv=MIMO_DV),
+        check_flash_fwd_no_copies(
+            torch, fa, dev, gen, "MiMo window layer",
+            (1, MIMO_CHECK_SEQ, MIMO_HEADS, MIMO_D), MIMO_SWA_KV,
+            MIMO_WINDOW, dv=MIMO_DV, sinks=True)]
     # no layout copy around B3 at both training cells' widths
     no_copies = [
         check_flash_attention_no_copies(torch, fa, dev, gen,
@@ -6456,6 +6561,7 @@ def main() -> int:
     flash_train_bwd = time_flash_bwd(torch, fa, dev, gen, spec,
                                      FLASH_TRAIN_SHAPE)
     flash_layers = time_flash_layers(torch, fa, dev, gen, spec)
+    flash_split = time_flash_split(torch, fa, dev, gen, spec)
     ring_parts = time_ring_parts(torch, fa, ringattention, dev, gen)
     timings = {
         "card": card,
@@ -6478,6 +6584,7 @@ def main() -> int:
                             "bwd_train_shape": flash_train_bwd,
                             "bwd_ptxas_spills": flash_bwd_spills,
                             "layers": flash_layers,
+                            "split": flash_split,
                             "ring_call_parts": ring_parts},
         "context_parallel": [r.__dict__ for r in cp_results],
         "dcn_ready": dcn_files,

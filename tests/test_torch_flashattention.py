@@ -177,7 +177,8 @@ class TestBlocks:
         elif case == "dtype":
             k = k.double()
         elif case == "shape":
-            v = torch.zeros(2, 16, 4)
+            # v may be narrower than q and k, but k is as wide as q
+            k = torch.zeros(2, 16, 4)
         elif case == "device":
             q = k = v = torch.zeros(2, 16, 8, device="meta")
         with pytest.raises(ValueError, match=match):
@@ -376,3 +377,119 @@ class TestBackwardWrapper:
             q = q[None]
         with pytest.raises(ValueError, match=match):
             fa.flash_bwd(q, k, v, out, m, l, dout, causal=True)
+
+
+class TestSplitWidthsAndSinks:
+    """Values narrower than keys (MiMo-V2-Flash's 192/128, here 96/64) and
+    attention sinks, on the CPU path: the forward and its backward, the
+    sinks' gradient included, against autograd of the port's plain f32
+    reference (``attention_reference``)."""
+
+    @staticmethod
+    def inputs(S=80, H=16, hkv=1, D=96, DV=64, sinks=True, seed=0):
+        g = torch.Generator().manual_seed(seed)
+        q = torch.randn(1, S, H, D, generator=g)
+        k = torch.randn(1, S, hkv, D, generator=g)
+        v = torch.randn(1, S, hkv, DV, generator=g)
+        dout = torch.randn(1, S, H, DV, generator=g)
+        s = torch.rand(H, generator=g) * 4 + 2 if sinks else None
+        return q, k, v, dout, s
+
+    @pytest.mark.parametrize("hkv, window, sinks", [
+        (1, None, False),    # group 16, the full layer's
+        (1, None, True),
+        (2, 24, True),       # group 8 under a window, the window layers'
+        (2, 24, False),
+        (16, 7, True),       # no group
+    ])
+    def test_forward_and_grads_match_the_reference(self, hkv, window,
+                                                   sinks):
+        q, k, v, dout, s = self.inputs(hkv=hkv, sinks=sinks,
+                                       seed=hkv + (window or 0))
+        xs = [t.clone().requires_grad_() for t in (q, k, v)]
+        sx = s.clone().requires_grad_() if sinks else None
+        out = fa.flash_attention(*xs, causal=True, window=window, sinks=sx)
+        out.backward(dout)
+        want = attention_reference.forward_backward(q, k, v, dout, True,
+                                                    window, s)
+        assert out.shape == (1, 80, 16, 64) and out.is_contiguous()
+        np.testing.assert_allclose(to_numpy(out.detach()), to_numpy(want[0]),
+                                   rtol=0, atol=OUT_ATOL)
+        got = xs + ([sx] if sinks else [])
+        assert len(want) == 1 + len(got)
+        for x, r, name in zip(got, want[1:], ("q", "k", "v", "sinks")):
+            assert x.grad.shape == x.shape, name
+            np.testing.assert_allclose(to_numpy(x.grad), to_numpy(r),
+                                       err_msg=f"d{name}", **GRAD_TOL)
+
+    def test_sinks_fold_into_the_row_statistics(self):
+        # l * e^m = e^sink + sum_j e^s_j; a row that sees no key keeps
+        # out = 0 and gets m = sink, l = 1
+        q, k, v, _, s = self.inputs(S=48, H=4, hkv=2)
+        qf, kf, vf = (t[0].transpose(0, 1).contiguous() for t in (q, k, v))
+        o, m, l = fa.flash_attention_blocks(qf, kf, vf, 0, 16, sinks=s)
+        o0, m0, l0 = fa.flash_attention_blocks(qf, kf, vf, 0, 16)
+        live = l0 > 0
+        total = torch.exp(m0) * l0 + torch.exp(s)[:, None]
+        np.testing.assert_allclose(to_numpy((l * torch.exp(m))[live]),
+                                   to_numpy(total[live]), rtol=1e-5)
+        assert bool(live[:, 16:].all()) and not bool(live[:, :16].any())
+        assert torch.equal(o[:, :16], torch.zeros_like(o[:, :16]))
+        assert torch.equal(m[:, :16], s[:, None].expand(4, 16))
+        assert torch.equal(l[:, :16], torch.ones_like(l[:, :16]))
+        # the sink only rescales each live row: out = out0 * (1 - P_sink)
+        keep = (torch.exp(m0) * l0 / total)[..., None]
+        np.testing.assert_allclose(to_numpy(o[:, 16:]),
+                                   to_numpy((o0 * keep)[:, 16:]),
+                                   rtol=0, atol=1e-6)
+
+    def test_counters_on_the_cpu_path(self, monkeypatch):
+        for fn in (fa.flash_attention_blocks, fa.flash_bwd):
+            for name in ("split_calls", "sink_calls", "launches"):
+                monkeypatch.setattr(fn, name, 0)
+        q, k, v, dout, s = self.inputs(S=32)
+        xs = [t.clone().requires_grad_() for t in (q, k, v)]
+        fa.flash_attention(*xs, sinks=s).backward(dout)
+        fa.flash_attention(q, k, k).detach()
+        for fn in (fa.flash_attention_blocks, fa.flash_bwd):
+            assert fn.launches == 0
+        assert (fa.flash_attention_blocks.split_calls,
+                fa.flash_attention_blocks.sink_calls) == (1, 1)
+        assert (fa.flash_bwd.split_calls, fa.flash_bwd.sink_calls) == (1, 1)
+
+    @pytest.mark.parametrize("heads, width", [(16, 64), (4, 128), (1, 64)])
+    def test_out_at_vs_width_unfolds_contiguous(self, heads, width):
+        # out in the fold view's layout at v's width: a [H, S, DV] view of
+        # a contiguous [1, S, H, DV]
+        S, D = 32, 192
+        x = torch.zeros(1, S, heads, D, dtype=torch.bfloat16)
+        out = fa._empty_in_layout(x.transpose(1, 2).reshape(heads, S, D),
+                                  width)
+        assert out.shape == (heads, S, width) and fa._tma_takes(out)
+        unfolded = out.reshape(1, heads, S, width).transpose(1, 2)
+        assert unfolded.is_contiguous()
+        assert unfolded.data_ptr() == out.data_ptr()
+
+    @pytest.mark.parametrize("case, match", [
+        ("sinks dtype", "sinks must be a float32"),
+        ("sinks length", r"sinks must be a \[H\]"),
+        ("k width", "disagree"),
+        ("dout width", "disagree"),
+    ])
+    def test_argument_checks_raise(self, case, match):
+        q, k, v, dout, s = self.inputs(S=16, H=4, hkv=2)
+        if case == "sinks dtype":
+            s = s.double()
+        elif case == "sinks length":
+            s = s[:3]
+        elif case == "k width":
+            k = k[..., :64]
+        with pytest.raises(ValueError, match=match):
+            if case == "dout width":
+                qf, kf, vf = (t[0].transpose(0, 1).contiguous()
+                              for t in (q, k, v))
+                o, m, l = fa.flash_attention_blocks(qf, kf, vf, 0, 0)
+                fa.flash_bwd(qf, kf, vf, o, m, l, torch.zeros_like(qf),
+                             causal=True)
+            else:
+                fa.flash_attention(q, k, v, sinks=s)

@@ -218,11 +218,15 @@ def test_reference_imports_torch_alone():
 def _ptxas(kernel, spills, registers=None):
     """A ptxas -v report of one kernel's instantiations, as nvcc writes it:
     spills by (head width, band) in bytes stored, and registers a thread
-    (168 where ``registers`` does not say)."""
+    (168 where ``registers`` does not say). B2's are templated on the key
+    and the value width (a width alone, or a (key, value) pair), B3's on
+    one."""
     lines = []
     for (width, band), stored in spills.items():
         used = (registers or {}).get((width, band), 168)
-        name = f"_ZN12_GLOBAL__N_19{kernel}ILi{width}ELb{int(band)}EEEvPKv"
+        d, dv = width if isinstance(width, tuple) else (width, width)
+        widths = f"ILi{d}E" + (f"Li{dv}E" if kernel == "flash_fwd" else "")
+        name = f"_ZN12_GLOBAL__N_19{kernel}{widths}Lb{int(band)}EEEvPKv"
         lines += [f"ptxas info    : Compiling entry function '{name}' for "
                   f"'sm_90a'",
                   f"ptxas info    : Function properties for {name}",
@@ -241,9 +245,13 @@ def test_ptxas_report_holds_all_four_instantiations(kernel):
     import chip_smoke
 
     clean = {(w, b): 0 for w in (64, 128) for b in (False, True)}
+    want = ["64", "128", "64.band", "128.band"]
+    if kernel == "flash_fwd":
+        # B2 alone has keys 192 wide over values 128 wide, a band one
+        clean[(192, 128), True] = 0
+        want.append("192x128.band")
     got = chip_smoke.check_flash_build(_ptxas(kernel, clean), kernel)
-    assert got == {k: {"spills": (0, 0), "registers": 168}
-                   for k in ("64", "128", "64.band", "128.band")}
+    assert got == {k: {"spills": (0, 0), "registers": 168} for k in want}
     with pytest.raises(RuntimeError, match="spills"):
         chip_smoke.check_flash_build(
             _ptxas(kernel, {**clean, (128, True): 8}), kernel)

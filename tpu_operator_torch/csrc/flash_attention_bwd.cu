@@ -600,17 +600,21 @@ int launch(int64_t bh, int64_t sq, int64_t sk, cudaStream_t s, const void* q,
 // bytes): d is contiguous in every operand, and every bf16 base is
 // 16-byte aligned. Workspace: stats f32 [2, bh, sq_pad] and dq_acc f32
 // [bh, sq_pad, d], contiguous, with sq_pad = sq rounded up to a multiple
-// of 64. d is 64 or 128; every tensor and `stream` are on CUDA device
-// `device`. Returns a cudaError_t.
+// of 64. d is 64 or 128, and the value width `dv` is d: B3 has no split
+// widths (keys wider than values), and no sink gradient, so `sinks` must
+// be null. Every tensor and `stream` are on CUDA device `device`. Returns
+// a cudaError_t.
 extern "C" int flash_attention_bwd_bf16(
     const void* q, const void* k, const void* v, const void* out,
     const void* dout, const void* m, const void* l, void* dq, void* dk,
     void* dv, void* stats, void* dq_acc, int64_t bh, int64_t sq, int64_t sk,
-    int64_t d, int causal, float scale, int64_t group, int64_t window,
-    const int64_t* strides, int device, void* stream) {
+    int64_t d, int64_t dv_width, int causal, float scale, int64_t group,
+    int64_t window, const void* sinks, const int64_t* strides, int device,
+    void* stream) {
   RowStrides st[kOperands];
   const void* bases[kOperands] = {q, k, v, out, dout, dq, dk, dv};
-  if (!read_strides(strides, bases, kOperands, st))
+  if (dv_width != d || sinks != nullptr ||
+      !read_strides(strides, bases, kOperands, st))
     return static_cast<int>(cudaErrorInvalidValue);
   if (bh <= 0 || sq <= 0 || sk <= 0 || bh > 2147483647 ||
       sq > 2147483647 - kBlockQ || (sk + kBlockK - 1) / kBlockK > 65535 ||
@@ -630,9 +634,14 @@ extern "C" int flash_attention_bwd_bf16(
   bf16* pdv = static_cast<bf16*>(dv);
   float* pst = static_cast<float*>(stats);
   float* pacc = static_cast<float*>(dq_acc);
-  return dispatch(d, group, window, [&](auto dim, auto band, int g, int w) {
-    return launch<decltype(dim)::value, decltype(band)::value>(
-        bh, sq, sk, s, q, k, v, po, pg, pm, pl, pdq, pdk, pdv, pst, pacc,
-        causal, scale, g, w, st);
+  return dispatch(d, dv_width, group, window, false,
+                  [&](auto dim, auto vdim, auto band, int g, int w) {
+    // refused above: no instantiation at split widths
+    if constexpr (decltype(dim)::value != decltype(vdim)::value)
+      return static_cast<int>(cudaErrorInvalidValue);
+    else
+      return launch<decltype(dim)::value, decltype(band)::value>(
+          bh, sq, sk, s, q, k, v, po, pg, pm, pl, pdq, pdk, pdv, pst, pacc,
+          causal, scale, g, w, st);
   });
 }

@@ -2,7 +2,7 @@
 // mbarriers, TMA tile and bulk loads, named barriers, register
 // rebalancing, wgmma (sm_90a) and f32 reductions into global memory, as
 // inline PTX; and the host half of a launch (the operands' strides,
-// tensor maps, the device bind, the dispatch over head width and
+// tensor maps, the device bind, the dispatch over head widths and
 // instantiation). Header only; a kernel source includes it and
 // kernels/build.py hashes it with the source.
 //
@@ -384,26 +384,28 @@ bool group_window_ok(int64_t bh, int64_t group, int64_t window, int causal) {
          window <= 2147483647 && (window == 0 || causal);
 }
 
-// f(std::integral_constant<int, D>, std::bool_constant<kBand>, group,
-// window) for d of 64 or 128: the band instantiation (grouped KV heads or
-// a sliding window) with the call's group and window, else the MHA one
-// with 1 and 0. cudaErrorInvalidValue for another d
+// f(std::integral_constant<int, D>, std::integral_constant<int, DV>,
+// std::bool_constant<kBand>, group, window) for key and value widths
+// (d, dv) of (64, 64) or (128, 128): the band instantiation (grouped KV
+// heads, a sliding window or a sink) with the call's group and window,
+// else the MHA one with 1 and 0; and for (192, 128) (keys wider than
+// values) the band one always. cudaErrorInvalidValue for another pair
 template <class F>
-int dispatch(int64_t d, int64_t group, int64_t window, F&& f) {
+int dispatch(int64_t d, int64_t dv, int64_t group, int64_t window, bool sink,
+             F&& f) {
   const int g = static_cast<int>(group), w = static_cast<int>(window);
-  const bool band = group > 1 || window > 0;
+  const bool band = group > 1 || window > 0 || sink;
   using D64 = std::integral_constant<int, 64>;
   using D128 = std::integral_constant<int, 128>;
-  switch (d) {
-    case 64:
-      return band ? f(D64(), std::true_type(), g, w)
-                  : f(D64(), std::false_type(), 1, 0);
-    case 128:
-      return band ? f(D128(), std::true_type(), g, w)
-                  : f(D128(), std::false_type(), 1, 0);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  using D192 = std::integral_constant<int, 192>;
+  if (d == 64 && dv == 64)
+    return band ? f(D64(), D64(), std::true_type(), g, w)
+                : f(D64(), D64(), std::false_type(), 1, 0);
+  if (d == 128 && dv == 128)
+    return band ? f(D128(), D128(), std::true_type(), g, w)
+                : f(D128(), D128(), std::false_type(), 1, 0);
+  if (d == 192 && dv == 128) return f(D192(), D128(), std::true_type(), g, w);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace

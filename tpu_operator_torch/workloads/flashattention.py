@@ -11,9 +11,13 @@ statistics are exactly what the ring merge needs.
 
 Layout [BH, S, D]. Causal masking is positional (runtime global offsets)
 because in ring attention a K block's global position depends on which
-hop it arrived on. Beyond the TPU kernel (which has neither), K/V may hold
-fewer heads than Q (grouped-query attention: query row r reads K/V row
-r // group) and the causal mask may take a sliding window of W keys.
+hop it arrived on. Beyond the TPU kernel (which has none of these), K/V
+may hold fewer heads than Q (grouped-query attention: query row r reads
+K/V row r // group), the causal mask may take a sliding window of W keys,
+V may be narrower than Q and K (split widths, as MLA's prefill form and
+MiMo-V2-Flash have: keys 192 wide over values 128 wide), and each query
+row may add a learned sink logit to its softmax's denominator (attention
+sinks: a logit with no value).
 
 ``flash_attention_blocks`` launches kernel B2 (``csrc/flash_attention.cu``)
 on a CUDA tensor and runs its plain version,
@@ -50,8 +54,11 @@ from .backend import launch, span
 
 NEG_INF = -1e30
 
-# kernel B2's head widths and input type (one instantiation each)
-KERNEL_HEAD_DIMS = (64, 128)
+# kernel B2's (q and k width, v width) pairs and input type: one
+# instantiation each, (192, 128) the band one alone
+KERNEL_HEAD_DIMS = ((64, 64), (128, 128), (192, 128))
+# kernel B3's: no split widths, and no sink gradient
+B3_HEAD_DIMS = ((64, 64), (128, 128))
 KERNEL_DTYPE = torch.bfloat16
 
 _SIGNATURES = {
@@ -59,10 +66,11 @@ _SIGNATURES = {
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # q, k, v
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # out, m, l
         ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,      # bh, sq, sk
-        ctypes.c_int64,                                      # d
+        ctypes.c_int64, ctypes.c_int64,                      # d, dv
         ctypes.c_int64, ctypes.c_int64,                      # q/k offset
         ctypes.c_int, ctypes.c_float,                        # causal, scale
         ctypes.c_int64, ctypes.c_int64,                      # group, window
+        ctypes.c_void_p,                                     # sinks
         ctypes.POINTER(ctypes.c_int64), ctypes.c_int,        # strides, device
         ctypes.c_void_p)),                                   # stream
 }
@@ -79,9 +87,10 @@ _BWD_SIGNATURES = {
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # dq, dk, dv
         ctypes.c_void_p, ctypes.c_void_p,                    # stats, dq_acc
         ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,      # bh, sq, sk
-        ctypes.c_int64,                                      # d
+        ctypes.c_int64, ctypes.c_int64,                      # d, dv
         ctypes.c_int, ctypes.c_float,                        # causal, scale
         ctypes.c_int64, ctypes.c_int64,                      # group, window
+        ctypes.c_void_p,                                     # sinks
         ctypes.POINTER(ctypes.c_int64), ctypes.c_int,        # strides, device
         ctypes.c_void_p)),                                   # stream
 }
@@ -94,10 +103,25 @@ def _seen(q_pos: torch.Tensor, k_pos: torch.Tensor, window) -> torch.Tensor:
     return seen if window is None else seen & (q_pos - k_pos < window)
 
 
+def _empty_in_layout(t: torch.Tensor, width: int) -> torch.Tensor:
+    """A new tensor of ``t``'s shape but for a last dimension ``width``
+    wide, its outer dimensions laid out in ``t``'s order: ``empty_like``
+    at ``t``'s own width (which keeps a dense view's strides), and its
+    rule for a dense tensor at another width. For the fold view [H, S, D]
+    of [1, S, H, D], a [H, S, width] view of a contiguous [1, S, H,
+    width]."""
+    if width == t.shape[-1]:
+        return torch.empty_like(t)
+    outer = sorted(range(t.dim() - 1), key=lambda i: -t.stride(i))
+    x = t.new_empty([t.shape[i] for i in outer] + [width])
+    return x.permute([outer.index(i) for i in range(t.dim() - 1)]
+                     + [t.dim() - 1])
+
+
 def flash_attention_blocks_reference(
         q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q_offset: int, k_offset: int, causal: bool = True,
-        q_tile: int = 256, chunk: int = 512, window=None,
+        q_tile: int = 256, chunk: int = 512, window=None, sinks=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of ``_flash_kernel``: each Q tile streams K/V chunks
     through the f32 online softmax. Scores are scaled before the mask, so
@@ -105,19 +129,23 @@ def flash_attention_blocks_reference(
     Query row r reads K/V row r // group, group = q.shape[0] //
     k.shape[0] (the group's rows are adjacent in the b-major fold), and
     a ``window`` of W keys leaves the query at global position i the keys
-    j with i - W < j <= i."""
+    j with i - W < j <= i. v may be narrower than q and k; out takes v's
+    width. ``sinks`` (f32 [BH]) folds each row's sink logit into its
+    denominator after the last chunk: one more column of the softmax,
+    with no value."""
     bh, sq, d = q.shape
     bkv, sk = k.shape[:2]
+    dv = v.shape[2]
     g = bh // bkv if bkv else 1
     scale = 1.0 / math.sqrt(d)
-    out = torch.empty_like(q)
+    out = _empty_in_layout(q, dv)
     m_all = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
     l_all = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
     for q0 in range(0, sq, q_tile):
         tq = min(q_tile, sq - q0)
         qt = q[:, q0:q0 + tq].float().reshape(bkv, g, tq, d)
         q_pos = q_offset + q0 + torch.arange(tq, device=q.device)[:, None]
-        acc = torch.zeros((bkv, g, tq, d), dtype=torch.float32,
+        acc = torch.zeros((bkv, g, tq, dv), dtype=torch.float32,
                           device=q.device)
         m = torch.full((bkv, g, tq, 1), NEG_INF, dtype=torch.float32,
                        device=q.device)
@@ -139,8 +167,15 @@ def flash_attention_blocks_reference(
             l = l * alpha + p.sum(dim=3, keepdim=True)
             acc = acc * alpha + torch.einsum("bgqk,bkd->bgqd", p, vc)
             m = m_new
+        if sinks is not None:
+            sink = sinks.float().reshape(bkv, g, 1, 1)
+            m_new = torch.maximum(m, sink)
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + torch.exp(sink - m_new)
+            acc = acc * alpha
+            m = m_new
         o = acc / torch.where(l == 0.0, 1.0, l)
-        out[:, q0:q0 + tq] = o.reshape(bh, tq, d).to(q.dtype)
+        out[:, q0:q0 + tq] = o.reshape(bh, tq, dv).to(q.dtype)
         m_all[:, q0:q0 + tq] = m.reshape(bh, tq)
         l_all[:, q0:q0 + tq] = l.reshape(bh, tq)
     return out, m_all, l_all
@@ -152,14 +187,16 @@ def _disagree(where: str, why: str, named) -> ValueError:
 
 
 def _contract(where: str, q, k, v, rest=(), causal: bool = True,
-              window=None, share_dtype: bool = True) -> Tuple[int, int]:
+              window=None, share_dtype: bool = True,
+              sinks=None) -> Tuple[int, int]:
     """The one contract of kernels B2 and B3 and of their plain versions:
-    q [BH, Sq, D], k and v [BH / group, Sk, D] on one CPU or CUDA device;
-    ``rest`` names B3's further tensors (out and dout like q, m and l
-    [BH, Sq]); on a card, bf16 with D in ``KERNEL_HEAD_DIMS`` and f32 m
-    and l; a ``window`` is a whole number of keys >= 1 under the causal
-    mask. Returns (group, window), the window 0 where there is none. It
-    runs on every call, so messages are built only to raise."""
+    q [BH, Sq, D], k [BH / group, Sk, D] and v [BH / group, Sk, DV] on one
+    CPU or CUDA device; ``rest`` names B3's further tensors (out and dout
+    [BH, Sq, DV], m and l [BH, Sq]); on a card, bf16 with (D, DV) in
+    ``KERNEL_HEAD_DIMS`` and f32 m and l; a ``window`` is a whole number
+    of keys >= 1 under the causal mask; ``sinks`` f32 [BH]. Returns
+    (group, window), the window 0 where there is none. It runs on every
+    call, so messages are built only to raise."""
     named = (("q", q), ("k", k), ("v", v), *rest)
     for name, t in named:
         if not isinstance(t, torch.Tensor):
@@ -169,22 +206,29 @@ def _contract(where: str, q, k, v, rest=(), causal: bool = True,
         if t.device != dev or dev.type not in ("cpu", "cuda"):
             raise ValueError(f"{where}: unsupported device {t.device} for "
                              f"{name} (q on {dev})")
-    qs, ks = q.shape, k.shape
+    qs, ks, vs = q.shape, k.shape, v.shape
     for name, t in named:
         stats = name == "m" or name == "l"
         if t.dim() != (2 if stats else 3):
             raise _disagree(where, f"{name} must be a "
                             f"{'[BH, S]' if stats else '[BH, S, D]'} tensor",
                             named)
-        if name in ("out", "dout") and t.shape != qs \
+        if name in ("out", "dout") and t.shape != qs[:2] + vs[2:] \
                 or stats and t.shape != qs[:2]:
-            raise _disagree(where, f"{name} must match q", named)
+            raise _disagree(where, f"{name} must match q's rows and v's "
+                            f"width", named)
     if share_dtype and not q.dtype == k.dtype == v.dtype:
         raise ValueError(f"{where}: q, k, v must share device and dtype")
     bh, bkv = qs[0], ks[0]
-    if ks != v.shape or ks[2] != qs[2] or (bh % bkv if bkv else bh):
-        raise _disagree(where, "k and v alike, q's BH a multiple of theirs",
-                        named)
+    if ks[1] != vs[1] or bkv != vs[0] or ks[2] != qs[2] \
+            or (bh % bkv if bkv else bh):
+        raise _disagree(where, "k and v alike but for v's width, k as wide "
+                        "as q, q's BH a multiple of theirs", named)
+    if sinks is not None and (
+            not isinstance(sinks, torch.Tensor) or sinks.device != dev
+            or sinks.dtype != torch.float32 or sinks.shape != (bh,)):
+        raise ValueError(f"{where}: sinks must be a float32 [BH] = [{bh}] "
+                         f"tensor on q's device, got {sinks!r:.200}")
     if window is not None:
         if isinstance(window, bool) \
                 or not isinstance(window, numbers.Integral) or window < 1:
@@ -202,15 +246,17 @@ def _contract(where: str, q, k, v, rest=(), causal: bool = True,
         if any(t.dtype != torch.float32 for name, t in rest
                if name in ("m", "l")):
             raise ValueError(f"{where}: m and l must be float32")
-        if qs[2] not in KERNEL_HEAD_DIMS:
-            raise ValueError(f"{where}: head dim {qs[2]} not in "
-                             f"{KERNEL_HEAD_DIMS}")
+        if (qs[2], vs[2]) not in KERNEL_HEAD_DIMS:
+            raise ValueError(f"{where}: head dims (q/k {qs[2]}, v {vs[2]}) "
+                             f"not in {KERNEL_HEAD_DIMS}")
     return (bh // bkv if bkv else 1), (0 if window is None else int(window))
 
 
-def _count(fn, group: int, window: int) -> None:
+def _count(fn, group: int, window: int, split: bool, sink: bool) -> None:
     fn.window_calls += window > 0
     fn.grouped_calls += group > 1
+    fn.split_calls += split
+    fn.sink_calls += sink
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -247,46 +293,54 @@ def _row_strides(*ts: torch.Tensor):
 def flash_attention_blocks(
         q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q_offset: int, k_offset: int, causal: bool = True,
-        q_tile: int = 256, chunk: int = 512, window=None,
+        q_tile: int = 256, chunk: int = 512, window=None, sinks=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Fused attend of q against (k, v) with positional causal masking.
 
-    q [BH, Sq, D], k and v [BH / group, Sk, D]: query row r reads K/V row
-    r // group (grouped KV heads, folded b-major). Returns (out [BH, Sq,
-    D], NORMALISED, in q's dtype; m [BH, Sq] and l [BH, Sq] in f32) so a
-    ring merge can combine blocks: unnormalised partial = out * l.
-    ``q_offset``/``k_offset`` are the global positions of element 0, and
-    a ``window`` of W keys (causal only) leaves the query at global
-    position i the keys j with i - W < j <= i. A row that sees no key
-    gives out = 0, l = 0 and m = NEG_INF.
+    q [BH, Sq, D], k [BH / group, Sk, D] and v [BH / group, Sk, DV]:
+    query row r reads K/V row r // group (grouped KV heads, folded
+    b-major). Returns (out [BH, Sq, DV], NORMALISED, in q's dtype; m
+    [BH, Sq] and l [BH, Sq] in f32) so a ring merge can combine blocks:
+    unnormalised partial = out * l. ``q_offset``/``k_offset`` are the
+    global positions of element 0, and a ``window`` of W keys (causal
+    only) leaves the query at global position i the keys j with i - W < j
+    <= i. ``sinks`` (f32 [BH]) adds e^sinks[r] to row r's denominator, a
+    logit with no value, once a call: l * e^m = e^sink + sum_j e^s_j, so
+    blocks with a sink cannot be merged. A row that sees no key gives
+    out = 0, l = 0 and m = NEG_INF (with a sink, m = sink and l = 1).
 
     On a CUDA tensor this launches kernel B2 (and counts the launch in
-    ``flash_attention_blocks.launches``), which takes bf16 with D in
-    ``KERNEL_HEAD_DIMS`` and always works in 128-row Q tiles and 128-key
-    chunks; ``q_tile``/``chunk`` are the plain version's loop steps, used
-    on a CPU tensor. B2 reads each of q, k and v through its own strides,
-    and copies only one it cannot take (``_tma_takes``), counted in
-    ``flash_attention_blocks.copies``; out comes back in q's layout. At
-    B = 1 the fold of ``flash_attention`` is such a view, so no copy is
-    made before B2 and out unfolds to a contiguous [1, S, H, D]. Calls
-    with a window and with a group above 1 are counted in
-    ``.window_calls`` and ``.grouped_calls`` on both paths.
+    ``flash_attention_blocks.launches``), which takes bf16 with (D, DV)
+    in ``KERNEL_HEAD_DIMS`` and always works in 128-row Q tiles and
+    128-key chunks; ``q_tile``/``chunk`` are the plain version's loop
+    steps, used on a CPU tensor. B2 reads each of q, k and v through its
+    own strides, and copies only one it cannot take (``_tma_takes``),
+    counted in ``flash_attention_blocks.copies``; out comes back in q's
+    layout at v's width. At B = 1 the fold of ``flash_attention`` is such
+    a view, so no copy is made before B2 and out unfolds to a contiguous
+    [1, S, H, DV]. Calls with a window, a group above 1, split widths (DV
+    < D) and sinks are counted in ``.window_calls``, ``.grouped_calls``,
+    ``.split_calls`` and ``.sink_calls`` on both paths.
     """
     with span("flash_attention_blocks"):
         group, win = _contract("flash_attention_blocks", q, k, v,
-                               causal=causal, window=window)
-        _count(flash_attention_blocks, group, win)
+                               causal=causal, window=window, sinks=sinks)
+        bh, sq, d = q.shape
+        dv = v.shape[2]
+        _count(flash_attention_blocks, group, win, dv != d,
+               sinks is not None)
         if q.device.type == "cpu":
             return flash_attention_blocks_reference(q, k, v, q_offset,
                                                     k_offset, causal, q_tile,
-                                                    chunk, window)
-        bh, sq, d = q.shape
+                                                    chunk, window, sinks)
         sk = k.shape[1]
         with span("flash_attention_blocks.align"):
             q, k, v = (_tma_operand(t, flash_attention_blocks)
                        for t in (q, k, v))
-        # in q's layout (empty_like keeps a dense view's strides)
-        out = torch.empty_like(q)
+            if sinks is not None:
+                sinks = sinks.contiguous()
+        # in q's layout at v's width
+        out = _empty_in_layout(q, dv)
         m = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
         l = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
         if bh == 0 or sq == 0:
@@ -295,8 +349,9 @@ def flash_attention_blocks(
             launch("flash_attention", _SIGNATURES, "flash_attention_fwd_bf16",
                    q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                    out.data_ptr(), m.data_ptr(), l.data_ptr(),
-                   bh, sq, sk, d, int(q_offset), int(k_offset),
+                   bh, sq, sk, d, dv, int(q_offset), int(k_offset),
                    1 if causal else 0, 1.0 / math.sqrt(d), group, win,
+                   None if sinks is None else sinks.data_ptr(),
                    _row_strides(q, k, v, out), q.device.index,
                    what="flash attention kernel")
         flash_attention_blocks.launches += 1
@@ -306,6 +361,8 @@ def flash_attention_blocks(
 flash_attention_blocks.launches = 0
 flash_attention_blocks.window_calls = 0
 flash_attention_blocks.grouped_calls = 0
+flash_attention_blocks.split_calls = 0
+flash_attention_blocks.sink_calls = 0
 flash_attention_blocks.copies = 0
 
 
@@ -319,20 +376,26 @@ flash_attention_blocks.copies = 0
 
 
 def flash_bwd_reference(q, k, v, out, m, l, dout, causal: bool,
-                        chunk: int = 512, window=None):
+                        chunk: int = 512, window=None, sinks=None):
     """Plain version of kernel B3: the chunked-recompute backward of
     ``_flash_bwd_rule``, in f32, with cotangents cast back to the input
     dtypes. Grouped K/V rows (``flash_attention_blocks_reference``'s
-    rule) take dK and dV summed over their group's query rows."""
+    rule) take dK and dV summed over their group's query rows; dq and dk
+    come at q's width, dv at v's. With ``sinks`` the forward's (m, l)
+    already hold each row's sink, so P and dS are as without one, and the
+    sinks' gradient comes fourth: dsink_r = -sum_i P^sink_i rowsum(dO_i *
+    O_i) over row r's queries, P^sink_i = e^(sink_r - m_i) / l_i."""
     bh, sq, d = q.shape
     bkv, sk = k.shape[:2]
+    dv_width = v.shape[2]
     g = bh // bkv if bkv else 1
     chunk = min(chunk, sk)
     scale = 1.0 / math.sqrt(d)
     in_dtypes = (q.dtype, k.dtype, v.dtype)
     # compute in f32 like the forward: recomputed P must match the
     # forward's P, not a bf16 quantisation
-    q, dout, out = (t.float().reshape(bkv, g, sq, d) for t in (q, dout, out))
+    q = q.float().reshape(bkv, g, sq, d)
+    dout, out = (t.float().reshape(bkv, g, sq, dv_width) for t in (dout, out))
     m = m.reshape(bkv, g, sq)
     l_safe = torch.where(l == 0.0, 1.0, l).reshape(bkv, g, sq)
     delta = (dout * out).sum(dim=-1)                        # [Bkv, G, Sq]
@@ -356,39 +419,53 @@ def flash_bwd_reference(q, k, v, out, m, l, dout, causal: bool,
         dk_cs.append(torch.einsum("bgqk,bgqd->bkd", ds, q) * scale)
     dk = torch.cat(dk_cs, dim=1)
     dv = torch.cat(dv_cs, dim=1)
-    return tuple(t.to(dt) for t, dt in zip((dq.reshape(bh, sq, d), dk, dv),
-                                           in_dtypes))
+    grads = tuple(t.to(dt) for t, dt in zip((dq.reshape(bh, sq, d), dk, dv),
+                                            in_dtypes))
+    if sinks is None:
+        return grads
+    # a row with a sink has l >= e^(sink - m) > 0, so l_safe is its l
+    p_sink = torch.exp(sinks.float().reshape(bkv, g, 1) - m) / l_safe
+    return grads + (-(p_sink * delta).sum(dim=-1).reshape(bh),)
 
 
 def flash_bwd(q, k, v, out, m, l, dout, causal: bool, chunk: int = 512,
-              window=None):
+              window=None, sinks=None):
     """dq, dk, dv of ``flash_attention_blocks(q, k, v, 0, 0, causal,
-    window=window)`` from its (out, m, l) and the upstream gradient
-    ``dout``; dk and dv have k's and v's shape, each summed over its
-    group's query rows.
+    window=window, sinks=sinks)`` from its (out, m, l) and the upstream
+    gradient ``dout``; dk and dv have k's and v's shape, each summed over
+    its group's query rows; with ``sinks``, their gradient fourth.
 
     On a CUDA tensor this launches kernel B3 (and counts the call in
-    ``flash_bwd.launches``), which takes bf16 q, k, v, out and dout with D
-    in ``KERNEL_HEAD_DIMS`` and f32 m and l; ``chunk`` is the plain
-    version's step over keys, used on a CPU tensor. B3 reads each of q, k,
-    v, out and dout through its own strides, and copies only one it cannot
-    take (``_tma_takes``), counted in ``flash_bwd.copies``; dq, dk and dv
-    come back in q's, k's and v's layouts. At B = 1 the fold of
-    ``flash_attention`` is such a view, so no copy is made before B3 and
-    autograd keeps the gradients it hands each leaf. Calls with a window
-    and with a group above 1 are counted in ``.window_calls`` and
-    ``.grouped_calls`` on both paths.
+    ``flash_bwd.launches``), which takes bf16 q, k, v, out and dout with
+    (D, DV) in ``B3_HEAD_DIMS`` and f32 m and l, and no sinks: split
+    widths or sinks raise ValueError there. ``chunk`` is the plain
+    version's step over keys, used on a CPU tensor, which takes both. B3
+    reads each of q, k, v, out and dout through its own strides, and
+    copies only one it cannot take (``_tma_takes``), counted in
+    ``flash_bwd.copies``; dq, dk and dv come back in q's, k's and v's
+    layouts. At B = 1 the fold of ``flash_attention`` is such a view, so
+    no copy is made before B3 and autograd keeps the gradients it hands
+    each leaf. Calls with a window, a group above 1, split widths and
+    sinks are counted in ``.window_calls``, ``.grouped_calls``,
+    ``.split_calls`` and ``.sink_calls`` on both paths.
     """
     with span("flash_bwd"):
         group, win = _contract(
             "flash_bwd", q, k, v, (("out", out), ("m", m), ("l", l),
                                    ("dout", dout)),
-            causal=causal, window=window, share_dtype=False)
-        _count(flash_bwd, group, win)
+            causal=causal, window=window, share_dtype=False, sinks=sinks)
+        bh, sq, d = q.shape
+        dv_width = v.shape[2]
+        _count(flash_bwd, group, win, dv_width != d, sinks is not None)
         if q.device.type == "cpu":
             return flash_bwd_reference(q, k, v, out, m, l, dout, causal,
-                                       chunk, window)
-        bh, sq, d = q.shape
+                                       chunk, window, sinks)
+        if (d, dv_width) not in B3_HEAD_DIMS or sinks is not None:
+            raise ValueError(
+                f"flash_bwd: kernel B3 takes neither split widths nor sinks "
+                f"(head dims (q/k {d}, v {dv_width}), sinks "
+                f"{'given' if sinks is not None else 'none'}); it takes "
+                f"{B3_HEAD_DIMS} and no sinks on the card")
         sk = k.shape[1]
         if bh == 0 or sq == 0 or sk == 0:
             return tuple(torch.zeros_like(t) for t in (q, k, v))
@@ -409,8 +486,8 @@ def flash_bwd(q, k, v, out, m, l, dout, causal: bool, chunk: int = 512,
                    q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                    dout.data_ptr(), m.data_ptr(), l.data_ptr(), dq.data_ptr(),
                    dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
-                   dq_acc.data_ptr(), bh, sq, sk, d, 1 if causal else 0,
-                   1.0 / math.sqrt(d), group, win,
+                   dq_acc.data_ptr(), bh, sq, sk, d, d, 1 if causal else 0,
+                   1.0 / math.sqrt(d), group, win, None,
                    _row_strides(q, k, v, out, dout, dq, dk, dv),
                    q.device.index,
                    what="flash attention backward kernel")
@@ -421,47 +498,64 @@ def flash_bwd(q, k, v, out, m, l, dout, causal: bool, chunk: int = 512,
 flash_bwd.launches = 0
 flash_bwd.window_calls = 0
 flash_bwd.grouped_calls = 0
+flash_bwd.split_calls = 0
+flash_bwd.sink_calls = 0
 flash_bwd.copies = 0
 
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
+    def forward(ctx, q, k, v, causal, window, sinks):
         out, m, l = flash_attention_blocks(q, k, v, 0, 0, causal=causal,
-                                           window=window)
-        ctx.save_for_backward(q, k, v, out, m, l)
+                                           window=window, sinks=sinks)
+        ctx.save_for_backward(q, k, v, out, m, l, sinks)
         ctx.causal = causal
         ctx.window = window
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out, m, l = ctx.saved_tensors
-        dq, dk, dv = flash_bwd(q, k, v, out, m, l, dout, ctx.causal,
-                               window=ctx.window)
-        return dq, dk, dv, None, None
+        q, k, v, out, m, l, sinks = ctx.saved_tensors
+        grads = flash_bwd(q, k, v, out, m, l, dout, ctx.causal,
+                          window=ctx.window, sinks=sinks)
+        return (*grads[:3], None, None,
+                grads[3] if sinks is not None else None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True, window=None) -> torch.Tensor:
+                    causal: bool = True, window=None,
+                    sinks=None) -> torch.Tensor:
     """Single-device flash attention, [B, S, H, D] layout (the drop-in for
     ``reference_attention``). k and v may hold fewer heads, [B, S, Hkv, D]
     with H a multiple of Hkv: query head h reads KV head h // (H // Hkv),
-    transformers' ``repeat_kv``, without repeating K/V in memory.
-    ``window=W`` (causal only) leaves the query at position i the keys j
-    with i - W < j <= i, W keys with itself: transformers' sliding-window
-    causal mask. Differentiable: the backward pass is ``flash_bwd``
-    (kernel B3 on the card)."""
+    transformers' ``repeat_kv``, without repeating K/V in memory. v may be
+    narrower than q and k, [B, S, Hkv, DV]: the output is [B, S, H, DV]
+    and the scale stays D**-0.5. ``window=W`` (causal only) leaves the
+    query at position i the keys j with i - W < j <= i, W keys with
+    itself: transformers' sliding-window causal mask. ``sinks`` (f32 [H])
+    adds head h's learned logit, with no value, to each of its rows'
+    softmax as one more column, the form of transformers' gpt-oss eager
+    attention. Differentiable: the backward pass is ``flash_bwd`` (kernel
+    B3 on the card, which takes neither split widths nor sinks)."""
     with span("flash_attention"):
         if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
             raise ValueError(f"flash_attention: q, k, v must be [B, S, H, "
                              f"D] tensors, got q{tuple(q.shape)} "
                              f"k{tuple(k.shape)} v{tuple(v.shape)}")
-        B, S, H, D = q.shape
-        fold = lambda t: t.transpose(1, 2).reshape(B * t.shape[2], -1, D)
+        B, S, H, _ = q.shape
+        DV = v.shape[3]
+        if sinks is not None and (not isinstance(sinks, torch.Tensor)
+                                  or sinks.shape != (H,)):
+            raise ValueError(f"flash_attention: sinks must be a [H] = "
+                             f"[{H}] tensor, one logit a query head, got "
+                             f"{getattr(sinks, 'shape', sinks)!r}")
+        fold = lambda t: t.transpose(1, 2).reshape(B * t.shape[2], -1,
+                                                   t.shape[3])
         with span("flash_attention.fold"):
             qf, kf, vf = fold(q), fold(k), fold(v)
-        out = _FlashAttention.apply(qf, kf, vf, causal, window)
-        del qf, kf, vf
+            # b-major, as the rows: a view at B = 1
+            sf = None if sinks is None else sinks.expand(B, -1).reshape(-1)
+        out = _FlashAttention.apply(qf, kf, vf, causal, window, sf)
+        del qf, kf, vf, sf
         with span("flash_attention.unfold"):
-            return out.reshape(B, H, S, D).transpose(1, 2)
+            return out.reshape(B, H, S, DV).transpose(1, 2)
