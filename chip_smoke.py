@@ -308,6 +308,9 @@ FLASH_LAYERS_GROUP, FLASH_LAYERS_WINDOW = 8, 2048
 MIMO_HEADS, MIMO_D, MIMO_DV = 64, 192, 128
 MIMO_FULL_KV, MIMO_SWA_KV, MIMO_WINDOW = 4, 8, 128
 MIMO_CHECK_SEQ, MIMO_TIME_SEQ = 8191, 16384
+# the cell's second prompt, ragged: the persistent kernel's last Q tile
+# holds 127 rows
+MIMO_RAGGED_SEQ = 16383
 
 
 # the burn-in: TP and FSDP losses of one step on one batch agree within
@@ -393,9 +396,12 @@ def check_triad(torch, hbm_probe, dev, gen, shape, offset: int) -> float:
 
 # a flash kernel's instantiations: head width, and whether it is the band
 # variant (grouped KV heads, a sliding window, a sink) or the MHA one; B2
-# adds keys 192 wide over values 128 wide, a band one alone
+# adds keys 192 wide over values 128 wide, a band one alone, and the
+# persistent kernel (``flash_fwd_persistent``) that its band calls with a
+# window take, at every width
 FLASH_INSTANTIATIONS = ("64", "128", "64.band", "128.band")
-FLASH_FWD_INSTANTIATIONS = FLASH_INSTANTIATIONS + ("192x128.band",)
+FLASH_FWD_INSTANTIATIONS = FLASH_INSTANTIATIONS + (
+    "192x128.band", "64.persistent", "128.persistent", "192x128.persistent")
 # registers a thread that ptxas reports for the MHA instantiations of B2
 # and B3: a block of 384 threads, one a multiprocessor, starts with 65536
 # / 384 rounded down to a multiple of 8, and setmaxnreg moves them between
@@ -409,7 +415,8 @@ def check_flash_build(log_text: str, kernel: str = "flash_fwd") -> dict:
     """ptxas's report of a flash kernel (``flash_fwd``, B2, or
     ``flash_bwd``, B3): bytes spilled (stores, loads) and registers a
     thread per instantiation, keyed by head width (``<d>x<dv>`` where the
-    values are narrower) and ``.band`` for the band variant. Fails unless
+    values are narrower), ``.band`` for the band variant and
+    ``.persistent`` for B2's persistent kernel. Fails unless
     all of the kernel's instantiations are there with nothing spilled and
     the MHA ones at ``FLASH_MHA_REGISTERS``, where ptxas ignored
     setmaxnreg (C7508) or where it serialised the wgmma for want of
@@ -419,13 +426,14 @@ def check_flash_build(log_text: str, kernel: str = "flash_fwd") -> dict:
     spills, regs, name, last = {}, {}, None, None
     for line in log_text.splitlines():
         if "Function properties for" in line or "Compiling entry" in line:
-            found = re.search(kernel + r"ILi(\d+)E(?:Li(\d+)E)?Lb([01])E",
-                              line)
+            found = re.search(kernel + r"(_persistent)?ILi(\d+)E"
+                              r"(?:Li(\d+)E)?(?:Lb([01])E)?", line)
             name = None
             if found:
-                d, dv, band = found.groups()
+                persistent, d, dv, band = found.groups()
                 name = (d if dv in (None, d) else f"{d}x{dv}") + (
-                    ".band" if band == "1" else "")
+                    ".persistent" if persistent
+                    else ".band" if band == "1" else "")
         elif name is not None and "spill stores" in line:
             spills[name] = tuple(int(n) for n in re.findall(
                 r"(\d+) bytes spill (?:stores|loads)", line))
@@ -446,7 +454,7 @@ def check_flash_build(log_text: str, kernel: str = "flash_fwd") -> dict:
         raise RuntimeError(f"{kernel} spills or lacks an instantiation: "
                            f"{spills}")
     moved = {k: regs.get(k) for k in instantiations
-             if "band" not in k and regs.get(k) != FLASH_MHA_REGISTERS}
+             if "." not in k and regs.get(k) != FLASH_MHA_REGISTERS}
     if moved:
         raise RuntimeError(f"{kernel}'s MHA registers a thread moved from "
                            f"{FLASH_MHA_REGISTERS}: {moved}")
@@ -496,8 +504,9 @@ def check_flash(torch, fa, ra, dev, gen, label, bh, sq, sk, d, q_offset=0,
                 k_offset=0, causal=True, dead_rows=0, group=1,
                 window=None, dv=None, sinks=False) -> dict:
     """Kernel vs plain version on seeded bf16 inputs; returns the errors.
-    The first ``dead_rows`` rows see no key: there out == 0, l == 0 and
-    m == -1e30 exactly (with sinks m == the row's sink and l == 1).
+    The first ``dead_rows`` rows (or the rows of a ``slice``) see no key:
+    there out == 0, l == 0 and m == -1e30 exactly (with sinks m == the
+    row's sink and l == 1), and every other row sees one.
     ``group`` query rows share each K/V row, ``window`` is the sliding
     window's keys, ``dv`` the values' width (d by default), and ``sinks``
     gives each row a sink logit."""
@@ -510,14 +519,18 @@ def check_flash(torch, fa, ra, dev, gen, label, bh, sq, sk, d, q_offset=0,
         window=window, sinks=s)
     torch.cuda.synchronize()
     if dead_rows:
+        dead = (dead_rows if isinstance(dead_rows, slice)
+                else slice(0, dead_rows))
+        rows = torch.zeros(sq, dtype=torch.bool, device=dev)
+        rows[dead] = True
         dead_m = fa.NEG_INF if s is None else s[:, None]
-        exact = (bool((o[:, :dead_rows] == 0).all())
-                 and bool((l[:, :dead_rows] == (0 if s is None else 1)).all())
-                 and bool((m[:, :dead_rows] == dead_m).all())
-                 and bool((l[:, dead_rows:] > 0).all()))
-        log(f"  flash {label}: rows 0..{dead_rows - 1} out==0, l==0 (1 "
-            f"with sinks), m==-1e30 (the sink) exactly and later rows "
-            f"live: {exact}")
+        exact = (bool((o[:, rows] == 0).all())
+                 and bool((l[:, rows] == (0 if s is None else 1)).all())
+                 and bool((m[:, rows] == dead_m).all())
+                 and bool((l[:, ~rows] > (0 if s is None else 1)).all()))
+        log(f"  flash {label}: rows {dead.start}..{dead.stop - 1} out==0, "
+            f"l==0 (1 with sinks), m==-1e30 (the sink) exactly and the "
+            f"other rows live: {exact}")
         if not exact:
             raise RuntimeError(f"flash kernel: the dead rows of {label} are "
                                f"not exactly empty")
@@ -708,9 +721,10 @@ def check_flash_fwd_no_copies(torch, fa, dev, gen, label, shape, hkv,
     runs, ``flash_attention_blocks.copies`` does not rise, the unfolded
     output is contiguous [1, S, H, DV], and the call is counted once in
     ``.split_calls`` where the values (``dv`` wide) are narrower than the
-    keys and in ``.sink_calls`` with ``sinks``. B2's out, m and l on the
-    fold views must be bit-equal to B2's on contiguous copies of the same
-    inputs, and so must the unfolded output to that out."""
+    keys, in ``.sink_calls`` with ``sinks`` and in ``.persistent_calls``
+    with a ``window`` (``flash_fwd_persistent`` runs then). B2's out, m
+    and l on the fold views must be bit-equal to B2's on contiguous copies
+    of the same inputs, and so must the unfolded output to that out."""
     _, S, H, D = shape
     DV = dv or D
     q = torch.randn((1, S, H, D), generator=gen, device=dev).to(
@@ -720,8 +734,7 @@ def check_flash_fwd_no_copies(torch, fa, dev, gen, label, shape, hkv,
     s = flash_sinks(torch, dev, gen, H) if sinks else None
     fold = lambda t: t.transpose(1, 2).reshape(t.shape[2], S, t.shape[3])
     views = [fold(t) for t in (q, k, v)]
-    counters = ("copies", "split_calls", "sink_calls")
-    before = {n: getattr(fa.flash_attention_blocks, n) for n in counters}
+    counters = ("copies", "split_calls", "sink_calls", "persistent_calls")
     found = {}
 
     def forward():
@@ -729,6 +742,11 @@ def check_flash_fwd_no_copies(torch, fa, dev, gen, label, shape, hkv,
             found["o"] = fa.flash_attention(q, k, v, causal=True,
                                             window=window, sinks=s)
 
+    # once before the profiler: a kernel's first launch in the process
+    # (its lazy load) went unrecorded in one profiled call
+    forward()
+    torch.cuda.synchronize()
+    before = {n: getattr(fa.flash_attention_blocks, n) for n in counters}
     names = device_ops(torch, forward)
     counts = {n: getattr(fa.flash_attention_blocks, n) - before[n]
               for n in counters}
@@ -746,13 +764,16 @@ def check_flash_fwd_no_copies(torch, fa, dev, gen, label, shape, hkv,
            "unfolded_contiguous": o.is_contiguous(),
            "unfolded_shape": list(o.shape),
            "out_layout": list(got[0].stride())}
-    if DV == D:
+    if window:
+        kernel = "flash_fwd_persistent<%d, %d>" % (D, DV)
+    elif DV == D:
         kernel = "flash_fwd<%d, %d, %s>" % (
-            D, D, "true" if hkv < H or window or sinks else "false")
+            D, D, "true" if hkv < H or sinks else "false")
     else:
         kernel = "flash_fwd<%d, %d, true>" % (D, DV)
     want_counts = {"copies": 0, "split_calls": int(DV != D),
-                   "sink_calls": int(sinks)}
+                   "sink_calls": int(sinks),
+                   "persistent_calls": int(bool(window))}
     log(f"  flash_attention's forward on fold views, {label} {list(shape)} "
         f"over {hkv} KV heads of {D}|{DV}, window={window}, sinks={sinks}: "
         f"{res} (want only [{kernel}], counters {want_counts}, bit-equal "
@@ -1027,8 +1048,9 @@ def time_flash_bwd(torch, fa, dev, gen, spec, shape) -> dict:
 
 
 def time_flash_layers(torch, fa, dev, gen, spec) -> dict:
-    """Kernels B2 and B3 (band instantiations) at Trinity-Mini's window
-    and full layers ([1, 16384, 32, 128] over 4 KV heads), each against
+    """Kernels B2 and B3 (band instantiations; B2's persistent kernel
+    under the window, which ``"persistent"`` records) at Trinity-Mini's
+    window and full layers ([1, 16384, 32, 128] over 4 KV heads), each against
     its bound (``perfbench/roofline_layers.py``); SDPA's forward and
     backward on K/V repeated per group for the full layer (a window
     needs a dense mask there, so it is not timed)."""
@@ -1043,13 +1065,16 @@ def time_flash_layers(torch, fa, dev, gen, spec) -> dict:
     out = {}
     for name, w in (("window", FLASH_LAYERS_WINDOW), ("full", None)):
         o, m, l = fa.flash_attention_blocks(q, k, v, 0, 0, True, window=w)
+        before = fa.flash_attention_blocks.persistent_calls
         fwd_ms = min(cuda_ms(torch, lambda: fa.flash_attention_blocks(
             q, k, v, 0, 0, True, window=w)) for _ in range(2))
+        persistent = fa.flash_attention_blocks.persistent_calls > before
         bwd_ms = min(cuda_ms(torch, lambda: fa.flash_bwd(
             q, k, v, o, m, l, dout, True, window=w)) for _ in range(2))
         fb, fby = roofline_layers.layer_fwd_bound(peak, bh, bh // g, S, D, w)
         bb, bby = roofline_layers.layer_bwd_bound(peak, bh, bh // g, S, D, w)
-        out[name] = {"window": w, "fwd_ms": fwd_ms, "bwd_ms": bwd_ms,
+        out[name] = {"window": w, "persistent": persistent,
+                     "fwd_ms": fwd_ms, "bwd_ms": bwd_ms,
                      "fwd_bound_ms": fb * 1e3, "fwd_bound_by": fby,
                      "bwd_bound_ms": bb * 1e3, "bwd_bound_by": bby,
                      "fwd_fraction_of_bound": fb * 1e3 / fwd_ms,
@@ -1072,7 +1097,8 @@ def time_flash_layers(torch, fa, dev, gen, spec) -> dict:
 def time_flash_split(torch, fa, dev, gen, spec) -> dict:
     """Kernel B2 at MiMo-V2-Flash's widths, [1, 16384, 64, 192] with
     values 128 wide: its full layer over 4 KV heads, and its window layer
-    over 8 under a 128-key window with sinks, each against its bound
+    over 8 under a 128-key window with sinks (the persistent kernel, which
+    ``"persistent"`` records), each against its bound
     (``perfbench/roofline_split.py``). No library call is timed beside
     it: SDPA's fused kernels take no values narrower than keys, nor
     sinks, and its plain one would hold [64, 16384, 16384] scores."""
@@ -1085,11 +1111,15 @@ def time_flash_split(torch, fa, dev, gen, spec) -> dict:
                                 ("window", MIMO_SWA_KV, MIMO_WINDOW, True)):
         q, k, v = flash_inputs(torch, dev, gen, H, S, S, d, H // hkv, dv)
         s = flash_sinks(torch, dev, gen, H) if sinks else None
+        before = fa.flash_attention_blocks.persistent_calls
         ms = min(cuda_ms(torch, lambda: fa.flash_attention_blocks(
             q, k, v, 0, 0, True, window=w, sinks=s)) for _ in range(2))
         bound, by = roofline_split.split_fwd_bound(peak, H, hkv, S, d, dv,
                                                    w, sinks)
-        out[name] = {"kv_heads": hkv, "window": w, "sinks": sinks, "ms": ms,
+        out[name] = {"kv_heads": hkv, "window": w, "sinks": sinks,
+                     "persistent":
+                         fa.flash_attention_blocks.persistent_calls > before,
+                     "ms": ms,
                      "bound_ms": bound * 1e3, "bound_by": by,
                      "fraction_of_bound": bound * 1e3 / ms}
         del q, k, v
@@ -6383,7 +6413,30 @@ def main() -> int:
         check_flash(torch, fa, ra, dev, gen, "sinks at 128", 32, 2048,
                     2048, 128, group=8, window=2048, sinks=True),
         check_flash(torch, fa, ra, dev, gen, "sinks at 64", 8, 1000, 1000,
-                    64, sinks=True)]
+                    64, sinks=True),
+        # the persistent kernel of the calls with a window, over more
+        # tiles than the card has multiprocessors: ragged, at Trinity's
+        # widths at the cell's shortest prompt, and ring hops whose first
+        # or last tiles see no chunk (a block's tiles with no chunk before
+        # and after those with some)
+        check_flash(torch, fa, ra, dev, gen, "MiMo window layer, ragged",
+                    MIMO_HEADS, MIMO_RAGGED_SEQ, MIMO_RAGGED_SEQ, MIMO_D,
+                    group=MIMO_HEADS // MIMO_SWA_KV, window=MIMO_WINDOW,
+                    dv=MIMO_DV, sinks=True),
+        check_flash(torch, fa, ra, dev, gen, "Trinity window layer", NB * NH,
+                    MIMO_CHECK_SEQ, MIMO_CHECK_SEQ, ND, group=NG, window=NW),
+        check_flash(torch, fa, ra, dev, gen, "window at 64, ragged", 32,
+                    4160, 4160, 64, group=4, window=300),
+        check_flash(torch, fa, ra, dev, gen, "window hop, first tiles dead",
+                    MIMO_HEADS, 1000, 1000, MIMO_D, q_offset=1700,
+                    k_offset=1990, dead_rows=290,
+                    group=MIMO_HEADS // MIMO_SWA_KV, window=MIMO_WINDOW,
+                    dv=MIMO_DV, sinks=True),
+        check_flash(torch, fa, ra, dev, gen, "window hop, last tiles dead",
+                    MIMO_HEADS, 1000, 1000, MIMO_D, q_offset=1000,
+                    dead_rows=slice(127, 1000),
+                    group=MIMO_HEADS // MIMO_SWA_KV, window=MIMO_WINDOW,
+                    dv=MIMO_DV, sinks=True)]
     flash_err = max(e["out"] for e in flash_errs)
     flash_row_rel = max(e["out_row_rel"] for e in flash_errs)
     check_flash_future_block(torch, fa, dev, gen, B * H, S, D)

@@ -457,6 +457,28 @@ class TestSplitWidthsAndSinks:
                 fa.flash_attention_blocks.sink_calls) == (1, 1)
         assert (fa.flash_bwd.split_calls, fa.flash_bwd.sink_calls) == (1, 1)
 
+    def test_persistent_calls_stay_zero_on_the_cpu_path(self):
+        # counted on the card path only: window and full calls on the CPU
+        # leave it where it started, at 0
+        assert fa.flash_attention_blocks.persistent_calls == 0
+        q, k, v, _, s = self.inputs(S=32, hkv=2)
+        for window in (None, 24, 1):
+            fa.flash_attention(q, k, v, window=window, sinks=s)
+        qf, kf, vf = (t[0].transpose(0, 1) for t in (q, k, v))
+        fa.flash_attention_blocks(qf, kf, vf, 0, 0, window=8)
+        assert fa.flash_attention_blocks.persistent_calls == 0
+
+    @pytest.mark.parametrize("window, persistent", [
+        (None, False), (1, True), (128, True), (2048, True), (10 ** 9, True),
+    ])
+    def test_persistent_rule_is_a_window(self, window, persistent):
+        # B2's entry takes the persistent kernel for the band calls with a
+        # window (window > 0 after the contract) and for no other call
+        q, k, v, _, _ = self.inputs(S=16, H=4, hkv=2)
+        qf, kf, vf = (t[0].transpose(0, 1) for t in (q, k, v))
+        _, win = fa._contract("b2", qf, kf, vf, window=window)
+        assert fa.b2_persistent(win) is persistent
+
     @pytest.mark.parametrize("heads, width", [(16, 64), (4, 128), (1, 64)])
     def test_out_at_vs_width_unfolds_contiguous(self, heads, width):
         # out in the fold view's layout at v's width: a [H, S, DV] view of

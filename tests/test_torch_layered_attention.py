@@ -2,9 +2,9 @@
 held to the plain float32 reference (``workloads/attention_reference.py``)
 on the CPU, where ``flash_attention_blocks`` and ``flash_bwd`` run their
 plain versions; kernels B2 and B3 are held to those on the card by
-``chip_smoke.py``, whose reading of ptxas's report (all four
-instantiations of each kernel, MHA and band at both head widths, spill
-free) is tested last. The JAX package has neither mechanism, so nothing
+``chip_smoke.py``, whose reading of ptxas's report (every instantiation
+of each kernel, MHA and band at both head widths and B2's split and
+persistent ones, spill free) is tested last. The JAX package has neither mechanism, so nothing
 here imports it.
 
 Tolerances: both sides compute in float32 in another order, which reads
@@ -220,13 +220,17 @@ def _ptxas(kernel, spills, registers=None):
     spills by (head width, band) in bytes stored, and registers a thread
     (168 where ``registers`` does not say). B2's are templated on the key
     and the value width (a width alone, or a (key, value) pair), B3's on
-    one."""
+    one; band ``"persistent"`` is B2's persistent kernel, templated on the
+    widths alone."""
     lines = []
     for (width, band), stored in spills.items():
         used = (registers or {}).get((width, band), 168)
         d, dv = width if isinstance(width, tuple) else (width, width)
         widths = f"ILi{d}E" + (f"Li{dv}E" if kernel == "flash_fwd" else "")
-        name = f"_ZN12_GLOBAL__N_19{kernel}{widths}Lb{int(band)}EEEvPKv"
+        if band == "persistent":
+            name = f"_ZN12_GLOBAL__N_120{kernel}_persistent{widths}EEvPKv"
+        else:
+            name = f"_ZN12_GLOBAL__N_19{kernel}{widths}Lb{int(band)}EEEvPKv"
         lines += [f"ptxas info    : Compiling entry function '{name}' for "
                   f"'sm_90a'",
                   f"ptxas info    : Function properties for {name}",
@@ -239,22 +243,31 @@ def _ptxas(kernel, spills, registers=None):
 @pytest.mark.parametrize("kernel", ["flash_fwd", "flash_bwd"])
 def test_ptxas_report_holds_all_four_instantiations(kernel):
     """``chip_smoke.check_flash_build`` reads each kernel's MHA and band
-    instantiations at both head widths, and fails on a spill in any of
-    them, on one missing, or on an MHA instantiation whose registers
-    moved from ``FLASH_MHA_REGISTERS``."""
+    instantiations at both head widths (and B2's persistent ones), and
+    fails on a spill in any of them, on one missing, or on an MHA
+    instantiation whose registers moved from ``FLASH_MHA_REGISTERS``."""
     import chip_smoke
 
     clean = {(w, b): 0 for w in (64, 128) for b in (False, True)}
     want = ["64", "128", "64.band", "128.band"]
     if kernel == "flash_fwd":
-        # B2 alone has keys 192 wide over values 128 wide, a band one
+        # B2 alone has keys 192 wide over values 128 wide, a band one, and
+        # a persistent kernel at each width for its calls with a window
         clean[(192, 128), True] = 0
         want.append("192x128.band")
+        for w in (64, 128, (192, 128)):
+            clean[w, "persistent"] = 0
+        want += ["64.persistent", "128.persistent", "192x128.persistent"]
     got = chip_smoke.check_flash_build(_ptxas(kernel, clean), kernel)
     assert got == {k: {"spills": (0, 0), "registers": 168} for k in want}
     with pytest.raises(RuntimeError, match="spills"):
         chip_smoke.check_flash_build(
             _ptxas(kernel, {**clean, (128, True): 8}), kernel)
+    if kernel == "flash_fwd":
+        with pytest.raises(RuntimeError, match="spills"):
+            chip_smoke.check_flash_build(
+                _ptxas(kernel, {**clean, ((192, 128), "persistent"): 8}),
+                kernel)
     with pytest.raises(RuntimeError, match="registers"):
         chip_smoke.check_flash_build(
             _ptxas(kernel, clean, {(64, False): 176}), kernel)

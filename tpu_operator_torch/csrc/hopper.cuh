@@ -23,6 +23,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
 #include <type_traits>
 
 namespace hopper {
@@ -83,6 +84,20 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const void* map,
       :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
          "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// ---- state in shared memory -------------------------------------------------
+
+// a 32-bit word of shared memory, read and written where the code says and
+// nowhere else: state kept out of registers across a loop
+__device__ __forceinline__ int ld_shared_s32(uint32_t addr) {
+  int v;
+  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_shared_s32(uint32_t addr, int v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" :: "r"(addr), "r"(v) : "memory");
 }
 
 // ---- named barriers and registers -------------------------------------------
@@ -375,6 +390,24 @@ bool read_strides(const int64_t* strides, const void* const* bases, int n,
 // CUDA runtime call yet lacks: autograd's worker thread, when a kernel's
 // launch is its first work. Returns a cudaError_t
 int bind_device(int device) { return static_cast<int>(cudaSetDevice(device)); }
+
+// `device`'s multiprocessors into *count, the grid of a persistent kernel:
+// asked of the runtime once a device, not on every launch. Returns a
+// cudaError_t
+int sm_count(int device, int* count) {
+  static std::atomic<int> counts[64];
+  if (device < 0 || device >= 64)
+    return static_cast<int>(cudaErrorInvalidDevice);
+  int n = counts[device].load(std::memory_order_relaxed);
+  if (n == 0) {
+    const cudaError_t err = cudaDeviceGetAttribute(
+        &n, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    counts[device].store(n, std::memory_order_relaxed);
+  }
+  *count = n;
+  return static_cast<int>(cudaSuccess);
+}
 
 // whether the kernels take these K/V groups and this window: bh a
 // multiple of group >= 1, and a window of at most 2^31 - 1 keys, with

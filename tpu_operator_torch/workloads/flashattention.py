@@ -252,6 +252,15 @@ def _contract(where: str, q, k, v, rest=(), causal: bool = True,
     return (bh // bkv if bkv else 1), (0 if window is None else int(window))
 
 
+def b2_persistent(window: int) -> bool:
+    """Whether kernel B2 takes its persistent schedule for a call with a
+    ``window`` of that many keys (0: none), as ``csrc/flash_attention.cu``
+    chooses: one block an SM walking the Q tiles, under a window, where
+    every tile sees about window / 128 + 1 chunks; one block a tile
+    without one, where causal tiles see from 1 to all chunks."""
+    return window > 0
+
+
 def _count(fn, group: int, window: int, split: bool, sink: bool) -> None:
     fn.window_calls += window > 0
     fn.grouped_calls += group > 1
@@ -320,7 +329,8 @@ def flash_attention_blocks(
     a view, so no copy is made before B2 and out unfolds to a contiguous
     [1, S, H, DV]. Calls with a window, a group above 1, split widths (DV
     < D) and sinks are counted in ``.window_calls``, ``.grouped_calls``,
-    ``.split_calls`` and ``.sink_calls`` on both paths.
+    ``.split_calls`` and ``.sink_calls`` on both paths; launches that take
+    B2's persistent schedule (``b2_persistent``) in ``.persistent_calls``.
     """
     with span("flash_attention_blocks"):
         group, win = _contract("flash_attention_blocks", q, k, v,
@@ -355,6 +365,7 @@ def flash_attention_blocks(
                    _row_strides(q, k, v, out), q.device.index,
                    what="flash attention kernel")
         flash_attention_blocks.launches += 1
+        flash_attention_blocks.persistent_calls += b2_persistent(win)
         return out, m, l
 
 
@@ -364,6 +375,7 @@ flash_attention_blocks.grouped_calls = 0
 flash_attention_blocks.split_calls = 0
 flash_attention_blocks.sink_calls = 0
 flash_attention_blocks.copies = 0
+flash_attention_blocks.persistent_calls = 0
 
 
 # ---------------------------------------------------------------------------
