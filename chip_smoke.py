@@ -224,6 +224,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import json
+import math
 import os
 import re
 import shutil
@@ -311,6 +312,13 @@ MIMO_CHECK_SEQ, MIMO_TIME_SEQ = 8191, 16384
 # the cell's second prompt, ragged: the persistent kernel's last Q tile
 # holds 127 rows
 MIMO_RAGGED_SEQ = 16383
+# DeepSeek-V3's MLA attention in training (attn.dsv3-train-16k): 128
+# heads at group 1, keys 192 wide (128 + a 64-wide rope key that every
+# head shares) over values 128 wide, at 16384 positions; the softmax
+# scale by DeepSeek's rule, 192**-0.5 * mscale**2 with YaRN's mscale =
+# 0.1 * mscale_all_dim * ln(factor) + 1 (factor 40, mscale_all_dim 1)
+MLA_HEADS, MLA_D, MLA_DV, MLA_SEQ = 128, 192, 128, 16384
+MLA_SCALE = MLA_D ** -0.5 * (0.1 * 1 * math.log(40) + 1) ** 2
 
 
 # the burn-in: TP and FSDP losses of one step on one batch agree within
@@ -402,6 +410,8 @@ def check_triad(torch, hbm_probe, dev, gen, shape, offset: int) -> float:
 FLASH_INSTANTIATIONS = ("64", "128", "64.band", "128.band")
 FLASH_FWD_INSTANTIATIONS = FLASH_INSTANTIATIONS + (
     "192x128.band", "64.persistent", "128.persistent", "192x128.persistent")
+# B3 adds keys 192 wide over values 128 wide, a band one alone, as B2
+FLASH_BWD_INSTANTIATIONS = FLASH_INSTANTIATIONS + ("192x128.band",)
 # registers a thread that ptxas reports for the MHA instantiations of B2
 # and B3: a block of 384 threads, one a multiprocessor, starts with 65536
 # / 384 rounded down to a multiple of 8, and setmaxnreg moves them between
@@ -422,7 +432,7 @@ def check_flash_build(log_text: str, kernel: str = "flash_fwd") -> dict:
     setmaxnreg (C7508) or where it serialised the wgmma for want of
     registers (C7512)."""
     instantiations = (FLASH_FWD_INSTANTIATIONS if kernel == "flash_fwd"
-                      else FLASH_INSTANTIATIONS)
+                      else FLASH_BWD_INSTANTIATIONS)
     spills, regs, name, last = {}, {}, None, None
     for line in log_text.splitlines():
         if "Function properties for" in line or "Compiling entry" in line:
@@ -790,29 +800,35 @@ def check_flash_fwd_no_copies(torch, fa, dev, gen, label, shape, hkv,
 
 
 def check_flash_attention_no_copies(torch, fa, dev, gen, shape, hkv,
-                                    window=None) -> dict:
+                                    window=None, dv=None,
+                                    scale=None) -> dict:
     """``flash_attention``'s backward at B = 1 under ``torch.profiler``:
     on the card only B3's three kernels run (``flash_bwd_pre``,
     ``flash_bwd``, ``flash_bwd_post``: no copy, no elementwise kernel),
     ``flash_bwd.copies`` does not rise, and the leaves' gradients come
-    back contiguous, as autograd keeps them without a clone."""
+    back contiguous, as autograd keeps them without a clone. ``dv`` is
+    the values' width (D by default), ``scale`` the softmax scale's."""
     _, S, H, D = shape
-    q, dout = (torch.randn((1, S, H, D), generator=gen, device=dev)
-               .to(torch.bfloat16) for _ in range(2))
-    k, v = (torch.randn((1, S, hkv, D), generator=gen, device=dev)
-            .to(torch.bfloat16) for _ in range(2))
+    DV = dv or D
+    q = torch.randn((1, S, H, D), generator=gen, device=dev).to(
+        torch.bfloat16)
+    dout = torch.randn((1, S, H, DV), generator=gen, device=dev).to(
+        torch.bfloat16)
+    k, v = (torch.randn((1, S, hkv, w), generator=gen, device=dev)
+            .to(torch.bfloat16) for w in (D, DV))
     xs = [t.requires_grad_() for t in (q, k, v)]
-    o = fa.flash_attention(*xs, causal=True, window=window)
+    o = fa.flash_attention(*xs, causal=True, window=window, scale=scale)
     torch.cuda.synchronize()
     before = fa.flash_bwd.copies
     names = device_ops(torch, lambda: o.backward(dout))
-    want = ["flash_bwd<%d, %s>" % (D, "true" if hkv < H or window else
-                                   "false"),
-            "flash_bwd_post<%d>" % D, "flash_bwd_pre<%d>" % D]
+    band = hkv < H or window or DV != D
+    want = ["flash_bwd<%d, %d, %s>" % (D, DV, "true" if band else "false"),
+            "flash_bwd_post<%d>" % D, "flash_bwd_pre<%d, %d>" % (D, DV)]
     res = {"device_ops": names, "copies": fa.flash_bwd.copies - before,
            "grads_contiguous": [x.grad.is_contiguous() for x in xs]}
-    log(f"  flash_attention's backward at {list(shape)} over {hkv} KV heads, "
-        f"window={window}: {res} (want only {want}, no copy)")
+    log(f"  flash_attention's backward at {list(shape)} over {hkv} KV heads "
+        f"of {D}|{DV}, window={window}, scale={scale}: {res} (want only "
+        f"{want}, no copy)")
     if names != sorted(want) or res["copies"] or not all(
             res["grads_contiguous"]):
         raise RuntimeError(f"flash_attention's backward at {list(shape)}, "
@@ -835,25 +851,29 @@ def grad_errors(torch, x, r) -> dict:
 
 
 def check_flash_bwd(torch, fa, dev, gen, label, bh, sq, sk, d, causal=True,
-                    dead_rows=0, group=1, window=None) -> dict:
+                    dead_rows=0, group=1, window=None, dv=None,
+                    scale=None) -> dict:
     """Kernel B3 vs its plain version on seeded bf16 inputs and B2's
     residuals; returns the errors of dq, dk, dv. The first ``dead_rows``
     rows are made rows that see no key (out 0, m -1e30, l 0), as B2 leaves
-    them: their dq must be exactly 0. ``group`` and ``window`` as
-    ``check_flash``'s."""
-    q, k, v = flash_inputs(torch, dev, gen, bh, sq, sk, d, group)
-    dout = torch.randn((bh, sq, d), generator=gen, device=dev).to(
+    them: their dq must be exactly 0. ``group``, ``window`` and ``dv`` as
+    ``check_flash``'s; ``scale`` the softmax scale (D**-0.5 if None)."""
+    q, k, v = flash_inputs(torch, dev, gen, bh, sq, sk, d, group, dv)
+    dout = torch.randn((bh, sq, dv or d), generator=gen, device=dev).to(
         torch.bfloat16)
     out, m, l = fa.flash_attention_blocks(q, k, v, 0, 0, causal,
-                                          window=window)
+                                          window=window, scale=scale)
     if dead_rows:
         out[:, :dead_rows] = 0
         m[:, :dead_rows] = fa.NEG_INF
         l[:, :dead_rows] = 0
-    got = fa.flash_bwd(q, k, v, out, m, l, dout, causal, window=window)
+    got = fa.flash_bwd(q, k, v, out, m, l, dout, causal, window=window,
+                       scale=scale)
+    # the plain version's [bh / group, group, sq, chunk] f32 scores within
+    # 1 GiB
+    chunk = 512 if group * sq <= 65536 and bh * sq <= 2 ** 19 else 128
     want = fa.flash_bwd_reference(q, k, v, out, m, l, dout, causal,
-                                  chunk=512 if group * sq <= 65536 else 128,
-                                  window=window)
+                                  chunk=chunk, window=window, scale=scale)
     torch.cuda.synchronize()
     errs = {}
     for name, x, r in zip(("dq", "dk", "dv"), got, want):
@@ -865,8 +885,8 @@ def check_flash_bwd(torch, fa, dev, gen, label, bh, sq, sk, d, causal=True,
     if dead_rows:
         errs["dead_dq_zero"] = bool((got[0][:, :dead_rows] == 0).all())
         ok = ok and errs["dead_dq_zero"]
-    log(f"  flash_bwd {label} [{bh}, {sq}|{sk}, {d}] causal={causal} "
-        f"group={group} window={window}: "
+    log(f"  flash_bwd {label} [{bh}, {sq}|{sk}, {d}|{dv or d}] "
+        f"causal={causal} group={group} window={window} scale={scale}: "
         f"{errs} (tolerances {FLASH_BWD_RTOL} the tensor, "
         f"{FLASH_BWD_ROW_RTOL} a row)")
     if not ok:
@@ -932,6 +952,35 @@ def check_flash_bwd_views(torch, fa, dev, gen, label, shape, hkv=None,
         raise RuntimeError(f"B3 on fold views disagrees with B3 on their "
                            f"contiguous copies on {label}: {errs}")
     return errs
+
+
+def check_flash_bwd_refuses_sinks(torch, fa, dev, gen) -> dict:
+    """On the card ``flash_bwd`` still refuses sinks (B3 has no sink
+    gradient), by name, at split widths and at equal ones, and takes the
+    same split-width call without them."""
+    out = {}
+    for d, dv in ((MIMO_D, MIMO_DV), (128, 128)):
+        q, k, v = flash_inputs(torch, dev, gen, 8, 256, 256, d, 2, dv)
+        s = flash_sinks(torch, dev, gen, 8)
+        o, m, l = fa.flash_attention_blocks(q, k, v, 0, 0, True, sinks=s)
+        dout = torch.randn_like(o)
+        try:
+            fa.flash_bwd(q, k, v, o, m, l, dout, True, sinks=s)
+            msg = None
+        except ValueError as e:
+            msg = str(e)
+        o, m, l = fa.flash_attention_blocks(q, k, v, 0, 0, True)
+        taken = fa.flash_bwd(q, k, v, o, m, l, dout, True)
+        torch.cuda.synchronize()
+        out[f"{d}x{dv}"] = {"refused": msg,
+                            "without_sinks_finite": all(
+                                bool(t.isfinite().all()) for t in taken)}
+    log(f"  flash_bwd with sinks on the card: {out}")
+    if not all(r["refused"] and "sinks" in r["refused"]
+               and r["without_sinks_finite"] for r in out.values()):
+        raise RuntimeError(f"flash_bwd took sinks on the card, or refused "
+                           f"the call without them: {out}")
+    return out
 
 
 def long_context_path(torch, mesh, ra, n_cards: int) -> tuple:
@@ -1125,6 +1174,61 @@ def time_flash_split(torch, fa, dev, gen, spec) -> dict:
         del q, k, v
     log(f"  flash at MiMo-V2-Flash's widths [1, {S}, {H}, {d}|{dv}]: {out}")
     return {"shape": [1, S, H, d, dv], **out}
+
+
+def time_flash_mla_bwd(torch, fa, dev, gen, spec) -> dict:
+    """Kernel B3 at DeepSeek-V3's MLA widths, [1, 16384, 128, 192] with
+    values 128 wide at group 1 and YaRN's scale, with B2's residuals,
+    against its bound (``perfbench/roofline_split_bwd.py``) and its plain
+    version, with B2's forward beside it. SDPA's backward on the same
+    call is timed as the library's yardstick where a fused kernel of it
+    takes values narrower than keys (None where it raises)."""
+    from perfbench import roofline_split, roofline_split_bwd
+
+    H, S, d, dv = MLA_HEADS, MLA_SEQ, MLA_D, MLA_DV
+    peak = card_peak(spec)
+    q, k, v = flash_inputs(torch, dev, gen, H, S, S, d, 1, dv)
+    dout = torch.randn((H, S, dv), generator=gen, device=dev).to(
+        torch.bfloat16)
+    out, m, l = fa.flash_attention_blocks(q, k, v, 0, 0, True,
+                                          scale=MLA_SCALE)
+
+    def kernel():
+        fa.flash_bwd(q, k, v, out, m, l, dout, True, scale=MLA_SCALE)
+
+    def plain():
+        fa.flash_bwd_reference(q, k, v, out, m, l, dout, True, chunk=128,
+                               scale=MLA_SCALE)
+
+    fwd_ms = min(cuda_ms(torch, lambda: fa.flash_attention_blocks(
+        q, k, v, 0, 0, True, scale=MLA_SCALE)) for _ in range(2))
+    plain_runs = [cuda_ms(torch, plain, iters=1, warmup=1)]
+    kernel_runs = [cuda_ms(torch, kernel), cuda_ms(torch, kernel)]
+    plain_runs.append(cuda_ms(torch, plain, iters=1, warmup=0))
+    try:
+        q4, k4, v4 = (t[None].detach().requires_grad_() for t in (q, k, v))
+        sdpa = torch.nn.functional.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True, scale=MLA_SCALE)
+        library_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+            sdpa, (q4, k4, v4), dout[None], retain_graph=True), iters=5)
+        del q4, k4, v4, sdpa
+    except RuntimeError as e:
+        library_ms = f"not run: {str(e)[:160]}"
+    bound, by = roofline_split_bwd.split_bwd_bound(peak, H, H, S, d, dv)
+    fb, fby = roofline_split.split_fwd_bound(peak, H, H, S, d, dv)
+    ms = min(kernel_runs)
+    res = {"shape": [1, S, H, d, dv], "scale": MLA_SCALE, "ms": ms,
+           "ms_runs": kernel_runs, "plain_ms": min(plain_runs),
+           "plain_ms_runs": plain_runs, "library_ms": library_ms,
+           "bound_ms": bound * 1e3, "bound_by": by,
+           "fraction_of_bound": bound * 1e3 / ms,
+           "tflops": roofline_split_bwd.split_bwd_flops(H, S, d, dv)
+           / (ms * 1e-3) / 1e12,
+           "fwd_ms": fwd_ms, "fwd_bound_ms": fb * 1e3, "fwd_bound_by": fby,
+           "fwd_fraction_of_bound": fb * 1e3 / fwd_ms}
+    log(f"  B3 at DeepSeek-V3's MLA widths [1, {S}, {H}, {d}|{dv}]: {res}")
+    del q, k, v, dout, out, m, l
+    return res
 
 
 def time_ring_parts(torch, fa, ra, dev, gen) -> dict:
@@ -6467,7 +6571,31 @@ def main() -> int:
         check_flash_bwd(torch, fa, dev, gen, "window of two keys", 8, 1000,
                         1000, 128, group=8, window=2),
         check_flash_bwd(torch, fa, dev, gen, "window past S", 8, 4160, 4160,
-                        128, group=2, window=20000)]
+                        128, group=2, window=20000),
+        # keys wider than values, B3's split instantiation (band at any
+        # group and window): MLA's training shape at YaRN's scale,
+        # MiMo-V2-Flash's full and window layers without sinks at the MiMo
+        # cell's shortest prompt and at 16384, and ragged ends, a window,
+        # no causal mask and dead rows
+        check_flash_bwd(torch, fa, dev, gen, "MLA (DeepSeek-V3) layer",
+                        MLA_HEADS, MLA_SEQ, MLA_SEQ, MLA_D, dv=MLA_DV,
+                        scale=MLA_SCALE),
+        *(check_flash_bwd(torch, fa, dev, gen, f"MiMo {kind} layer, no sinks",
+                          MIMO_HEADS, seq, seq, MIMO_D, group=MIMO_HEADS // hkv,
+                          window=w, dv=MIMO_DV)
+          for seq in (MIMO_CHECK_SEQ, MIMO_TIME_SEQ)
+          for kind, hkv, w in (("full", MIMO_FULL_KV, None),
+                               ("window", MIMO_SWA_KV, MIMO_WINDOW))),
+        check_flash_bwd(torch, fa, dev, gen, "split, ragged", 8, 300, 260,
+                        MLA_D, dv=MLA_DV, scale=MLA_SCALE),
+        check_flash_bwd(torch, fa, dev, gen, "split, non-causal", 8, 300,
+                        260, MLA_D, causal=False, dv=MLA_DV),
+        check_flash_bwd(torch, fa, dev, gen, "split, window, ragged", 8,
+                        1000, 1000, MLA_D, group=2, window=77, dv=MLA_DV),
+        check_flash_bwd(torch, fa, dev, gen, "split, dead rows", 8, 1000,
+                        1000, MLA_D, dead_rows=60, dv=MLA_DV,
+                        scale=MLA_SCALE)]
+    bwd_sinks = check_flash_bwd_refuses_sinks(torch, fa, dev, gen)
     bwd_rel = max(e[f"{n}_rel"] for e in bwd_errs for n in ("dq", "dk", "dv"))
     bwd_row = max(e[f"{n}_row"] for e in bwd_errs for n in ("dq", "dk", "dv"))
     # B3 through its operands' strides: flash_attention's fold views
@@ -6574,7 +6702,10 @@ def main() -> int:
         check_flash_attention_no_copies(torch, fa, dev, gen,
                                         FLASH_LAYERS_SHAPE, NH // NG, NW),
         check_flash_attention_no_copies(torch, fa, dev, gen,
-                                        FLASH_LAYERS_SHAPE, NH // NG)]
+                                        FLASH_LAYERS_SHAPE, NH // NG),
+        check_flash_attention_no_copies(
+            torch, fa, dev, gen, (1, MLA_SEQ, MLA_HEADS, MLA_D), MLA_HEADS,
+            dv=MLA_DV, scale=MLA_SCALE)]
 
     # 7. timings
     log("# phase 7: timings")
@@ -6615,6 +6746,7 @@ def main() -> int:
                                      FLASH_TRAIN_SHAPE)
     flash_layers = time_flash_layers(torch, fa, dev, gen, spec)
     flash_split = time_flash_split(torch, fa, dev, gen, spec)
+    flash_mla_bwd = time_flash_mla_bwd(torch, fa, dev, gen, spec)
     ring_parts = time_ring_parts(torch, fa, ringattention, dev, gen)
     timings = {
         "card": card,
@@ -6638,6 +6770,8 @@ def main() -> int:
                             "bwd_ptxas_spills": flash_bwd_spills,
                             "layers": flash_layers,
                             "split": flash_split,
+                            "mla_bwd": flash_mla_bwd,
+                            "bwd_sinks_refused": bwd_sinks,
                             "ring_call_parts": ring_parts},
         "context_parallel": [r.__dict__ for r in cp_results],
         "dcn_ready": dcn_files,

@@ -218,15 +218,15 @@ def test_reference_imports_torch_alone():
 def _ptxas(kernel, spills, registers=None):
     """A ptxas -v report of one kernel's instantiations, as nvcc writes it:
     spills by (head width, band) in bytes stored, and registers a thread
-    (168 where ``registers`` does not say). B2's are templated on the key
-    and the value width (a width alone, or a (key, value) pair), B3's on
-    one; band ``"persistent"`` is B2's persistent kernel, templated on the
+    (168 where ``registers`` does not say). B2's and B3's are templated on
+    the key and the value width (a width alone, or a (key, value) pair);
+    band ``"persistent"`` is B2's persistent kernel, templated on the
     widths alone."""
     lines = []
     for (width, band), stored in spills.items():
         used = (registers or {}).get((width, band), 168)
         d, dv = width if isinstance(width, tuple) else (width, width)
-        widths = f"ILi{d}E" + (f"Li{dv}E" if kernel == "flash_fwd" else "")
+        widths = f"ILi{d}ELi{dv}E"
         if band == "persistent":
             name = f"_ZN12_GLOBAL__N_120{kernel}_persistent{widths}EEvPKv"
         else:
@@ -243,18 +243,20 @@ def _ptxas(kernel, spills, registers=None):
 @pytest.mark.parametrize("kernel", ["flash_fwd", "flash_bwd"])
 def test_ptxas_report_holds_all_four_instantiations(kernel):
     """``chip_smoke.check_flash_build`` reads each kernel's MHA and band
-    instantiations at both head widths (and B2's persistent ones), and
-    fails on a spill in any of them, on one missing, or on an MHA
-    instantiation whose registers moved from ``FLASH_MHA_REGISTERS``."""
+    instantiations at both head widths, the band one at keys 192 wide over
+    values 128 wide (and B2's persistent ones), and fails on a spill in
+    any of them, on one missing, or on an MHA instantiation whose
+    registers moved from ``FLASH_MHA_REGISTERS``."""
     import chip_smoke
 
     clean = {(w, b): 0 for w in (64, 128) for b in (False, True)}
     want = ["64", "128", "64.band", "128.band"]
+    # both kernels have keys 192 wide over values 128 wide, a band one
+    clean[(192, 128), True] = 0
+    want.append("192x128.band")
     if kernel == "flash_fwd":
-        # B2 alone has keys 192 wide over values 128 wide, a band one, and
-        # a persistent kernel at each width for its calls with a window
-        clean[(192, 128), True] = 0
-        want.append("192x128.band")
+        # B2 alone has a persistent kernel at each width for its calls
+        # with a window
         for w in (64, 128, (192, 128)):
             clean[w, "persistent"] = 0
         want += ["64.persistent", "128.persistent", "192x128.persistent"]
@@ -263,6 +265,9 @@ def test_ptxas_report_holds_all_four_instantiations(kernel):
     with pytest.raises(RuntimeError, match="spills"):
         chip_smoke.check_flash_build(
             _ptxas(kernel, {**clean, (128, True): 8}), kernel)
+    with pytest.raises(RuntimeError, match="spills"):
+        chip_smoke.check_flash_build(
+            _ptxas(kernel, {**clean, ((192, 128), True): 56}), kernel)
     if kernel == "flash_fwd":
         with pytest.raises(RuntimeError, match="spills"):
             chip_smoke.check_flash_build(

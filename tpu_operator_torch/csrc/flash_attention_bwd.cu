@@ -75,6 +75,26 @@
 //   key, and the mask also runs on tiles that reach past the warpgroup's
 //   first key's window. The MHA instantiations keep group 1 and no window
 //   at compile time;
+// - keys wider than values (flash_bwd<192, 128, true>, MLA's training
+//   form: q and k 192 wide, v, out and dO 128; a band instantiation, so
+//   any group and window): a warpgroup's dK (64 keys x 192) and dV (64 x
+//   128) take 96 + 64 registers, and S^T and dP^T of a 64-query tile 64
+//   more, more than the 240 a consumer gets beside a producer warpgroup.
+//   So the block has none: 256 threads at 255 registers, and thread 0
+//   issues the loads, each stage's next tile once both warpgroups have
+//   passed the tile's named barrier. dV += P^T.dO is m64n128k16 RS and
+//   dK += dS^T.Q m64n192k16 RS. dQ's three 64-column boxes are shared out
+//   evenly: warpgroup w takes box w over the block's 128 keys and box 2
+//   over its own 64 keys, each box staged and reduced in turn through one
+//   [64, 64] f32 buffer a warpgroup (box 2 gets two reductions). Its grid
+//   runs the key tiles fastest, so that the blocks in flight share a few
+//   heads' f32 dQ rows and the bulk reductions meet in L2 (at [1, 16384,
+//   128] the accumulator is 1.6 GB, and with the heads fastest B3 took
+//   131 ms where it takes 64). The preprocess reads out and dO at the
+//   value width, the postprocess writes dQ at the key width. Shared
+//   memory: K 48 KB, V 32 KB, dS^T 32 KB, two ring stages of Q (24 KB)
+//   and dO (16 KB), the dQ staging 32 KB: 226 KB of the 227 a block may
+//   have;
 // - layouts: the TMA maps of Q, dO, K and V take each tensor's (bh, row)
 //   strides as byte strides, and the preprocess (out, dO), the epilogue
 //   (dK, dV) and the postprocess (dQ) address through theirs, passed as
@@ -125,17 +145,23 @@ constexpr uint32_t kDsBar = 1;   // named barrier: both halves of dS^T written
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kNegInf = -1e30f;  // the forward's NEG_INF
 
-template <int D>
+// D the width of q and k, DV that of v, out and dO
+template <int D, int DV>
 struct Layout {
   static constexpr int kBoxes = D / kBoxCols;
-  static constexpr int kKTile = kBoxes * kKBox;   // K or V
-  static constexpr int kQTile = kBoxes * kQBox;   // Q or dO
+  static constexpr int kVBoxes = DV / kBoxCols;
+  static constexpr int kKTile = kBoxes * kKBox;   // K
+  static constexpr int kVTile = kVBoxes * kKBox;  // V
+  static constexpr int kQTile = kBoxes * kQBox;   // Q
+  static constexpr int kDoTile = kVBoxes * kQBox; // dO
   static constexpr int kStages = D == 64 ? 4 : 2;
   static constexpr int kV = kKTile;               // K at 0
-  static constexpr int kDs = 2 * kKTile;          // two dS^T buffers
+  static constexpr int kDs = kKTile + kVTile;     // two dS^T buffers
   static constexpr int kRing = kDs + 2 * kDsTile; // Q, dO of each stage
-  static constexpr int kDq = kRing + kStages * 2 * kQTile;  // dQ staging
-  static constexpr int kStats = kDq + kBoxes * kDqTile;
+  static constexpr int kDq = kRing + kStages * (kQTile + kDoTile);  // dQ staging
+  // a [64, 64] f32 box a consumer warpgroup; at split widths each stages
+  // its boxes one after another
+  static constexpr int kStats = kDq + (D == DV ? kBoxes : 2) * kDqTile;
   static constexpr int kBars = kStats + kStages * 2 * kStatBytes;
   // kv_full, full and empty of each stage; plus the slack that aligns the
   // base to 1024 bytes
@@ -154,22 +180,24 @@ __device__ __forceinline__ float exp2_ftz(float x) {
   return y;
 }
 
-template <int D>
+// out and dO DV wide, the dQ accumulator D wide
+template <int D, int DV>
 __global__ void __launch_bounds__(256)
 flash_bwd_pre(const bf16* __restrict__ out, const bf16* __restrict__ dout,
               const float* __restrict__ m, const float* __restrict__ l,
               float* __restrict__ lse2, float* __restrict__ delta,
               float* __restrict__ dq_acc, int sq, int sq_pad,
               RowStrides out_st, RowStrides dout_st) {
-  constexpr int kLanes = D / 8;  // threads a row, 8 columns each
+  constexpr int kLanes = DV / 8;  // threads a row, 8 columns of out each
+  constexpr int kAcc = D / kLanes;  // accumulator columns a thread zeroes
   const int64_t row =
       static_cast<int64_t>(blockIdx.x) * (256 / kLanes) + threadIdx.x / kLanes;
   const int lane = threadIdx.x % kLanes;
   const int64_t b = row / sq_pad;
   const int r = static_cast<int>(row % sq_pad);
-  float4* acc = reinterpret_cast<float4*>(dq_acc + row * D + lane * 8);
-  acc[0] = make_float4(0.f, 0.f, 0.f, 0.f);
-  acc[1] = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4* acc = reinterpret_cast<float4*>(dq_acc + row * D + lane * kAcc);
+#pragma unroll
+  for (int i = 0; i < kAcc / 4; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   float dot = 0.f;
   if (r < sq) {
     const uint4 ov = *reinterpret_cast<const uint4*>(
@@ -206,8 +234,8 @@ flash_bwd_pre(const bf16* __restrict__ out, const bf16* __restrict__ dout,
 // and dV sum over them in registers) and a sliding window of `window`
 // keys (0: none). The instantiations without it are the MHA kernel as it
 // was, with group 1 and no window
-template <int D, bool kBand>
-__global__ void __launch_bounds__(kThreads, 1)
+template <int D, int DV, bool kBand>
+__global__ void __launch_bounds__(D == DV ? kThreads : kConsumers, 1)
 flash_bwd(const __grid_constant__ CUtensorMap q_map,
           const __grid_constant__ CUtensorMap do_map,
           const __grid_constant__ CUtensorMap k_map,
@@ -216,7 +244,7 @@ flash_bwd(const __grid_constant__ CUtensorMap q_map,
           float* __restrict__ dq_acc, bf16* __restrict__ dk,
           bf16* __restrict__ dv, int sq, int sk, int causal, float scale,
           int group, int window, RowStrides dk_st, RowStrides dv_st) {
-  using L = Layout<D>;
+  using L = Layout<D, DV>;
   constexpr int kStages = L::kStages;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -224,7 +252,9 @@ flash_bwd(const __grid_constant__ CUtensorMap q_map,
   const uint32_t s_k = base;
   const uint32_t s_v = base + L::kV;
   auto s_ds = [&](int b) { return base + L::kDs + b * kDsTile; };
-  auto s_q = [&](int st) { return base + L::kRing + st * 2 * L::kQTile; };
+  auto s_q = [&](int st) {
+    return base + L::kRing + st * (L::kQTile + L::kDoTile);
+  };
   auto s_do = [&](int st) { return s_q(st) + L::kQTile; };
   auto stat_off = [&](int st) { return L::kStats + st * 2 * kStatBytes; };
   const uint32_t bars = base + L::kBars;
@@ -232,9 +262,10 @@ flash_bwd(const __grid_constant__ CUtensorMap q_map,
   auto full = [&](int st) { return bars + 8 * (1 + st); };
   auto empty = [&](int st) { return bars + 8 * (1 + kStages + st); };
 
-  const int bh_kv = blockIdx.x;
+  // at split widths the grid runs the key tiles fastest (see launch)
+  const int bh_kv = D == DV ? blockIdx.x : blockIdx.y;
   const int heads = kBand ? group : 1;  // query rows a K/V row serves
-  const int key0 = blockIdx.y * kBlockK;
+  const int key0 = (D == DV ? blockIdx.y : blockIdx.x) * kBlockK;
   const int sq_pad = (sq + kBlockQ - 1) / kBlockQ * kBlockQ;
   // under the causal mask the first tile whose last row sees key0; under
   // a window the tiles end at the last query that sees the block's last
@@ -259,16 +290,17 @@ flash_bwd(const __grid_constant__ CUtensorMap q_map,
   __syncthreads();
 
   const int wg = threadIdx.x / 128;
-  if (wg == 2) {
+  if (D == DV && wg == 2) {
     // producer: one thread issues every load
     regs_dec<kProducerRegs>();
     if (threadIdx.x == kConsumers && n_iter > 0) {
-      mbar_arrive_expect_tx(kv_full, 2 * L::kKTile);
+      mbar_arrive_expect_tx(kv_full, L::kKTile + L::kVTile);
       for (int h = 0; h < L::kBoxes; ++h) {
         tma_load_3d(s_k + h * kKBox, &k_map, kv_full, h * kBoxCols, key0,
                     bh_kv);
-        tma_load_3d(s_v + h * kKBox, &v_map, kv_full, h * kBoxCols, key0,
-                    bh_kv);
+        if (h < L::kVBoxes)
+          tma_load_3d(s_v + h * kKBox, &v_map, kv_full, h * kBoxCols, key0,
+                      bh_kv);
       }
       for (int hq = 0; hq < heads; ++hq) {
         const int bh = bh_kv * heads + hq;
@@ -278,12 +310,14 @@ flash_bwd(const __grid_constant__ CUtensorMap q_map,
           const int st = it % kStages;
           const int row = (i0 + n) * kBlockQ;
           if (it >= kStages) mbar_wait(empty(st), (it / kStages - 1) & 1);
-          mbar_arrive_expect_tx(full(st), 2 * L::kQTile + 2 * kStatBytes);
+          mbar_arrive_expect_tx(full(st),
+                                L::kQTile + L::kDoTile + 2 * kStatBytes);
           for (int h = 0; h < L::kBoxes; ++h) {
             tma_load_3d(s_q(st) + h * kQBox, &q_map, full(st), h * kBoxCols,
                         row, bh);
-            tma_load_3d(s_do(st) + h * kQBox, &do_map, full(st),
-                        h * kBoxCols, row, bh);
+            if (h < L::kVBoxes)
+              tma_load_3d(s_do(st) + h * kQBox, &do_map, full(st),
+                          h * kBoxCols, row, bh);
           }
           bulk_load(base + stat_off(st), lse2 + stat_row + row, kStatBytes,
                     full(st));
@@ -291,6 +325,270 @@ flash_bwd(const __grid_constant__ CUtensorMap q_map,
                     kStatBytes, full(st));
         }
       }
+    }
+  } else if constexpr (D != DV) {
+    // the block at split widths, keys 192 wide over values 128: its two
+    // warpgroups consume as the branch below, with dK's accumulator D / 2
+    // registers beside dV's DV / 2, and dQ's three boxes shared out:
+    // warpgroup wg takes box wg over the block's 128 keys and the last box
+    // over its own 64, staging one box after the other
+    static_assert(D == 192 && DV == 128, "split widths: keys 192, values 128");
+    // no producer warpgroup: the block's 256 threads take 255 registers
+    // each (240 with one, where the accumulators alone take 160 and S^T
+    // and dP^T 64 more), and thread 0 issues every load: K, V and the
+    // first stages here, then after each tile's named barrier, when both
+    // warpgroups are done with the tile's stage, the tile kStages on into
+    // it. A load works out its tile from the block's index, read anew, and
+    // the parameters, so that no scalar of its own stays live across the
+    // consumers' loop (the loop spilled without that)
+    const int total = heads * n_iter;  // the ring's tiles
+    auto load_tile = [&](int it) {
+      int bx, by;
+      asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(bx));
+      asm volatile("mov.u32 %0, %%ctaid.y;" : "=r"(by));
+      const int k0 = bx * kBlockK;
+      const int first = causal ? k0 / kBlockQ : 0;
+      int last = (sq + kBlockQ - 1) / kBlockQ;
+      if (kBand && window > 0) {
+        const int64_t reach =
+            (static_cast<int64_t>(k0) + kBlockK + window - 2) / kBlockQ + 1;
+        if (reach < last) last = static_cast<int>(reach);
+      }
+      const int tiles = last - first;  // > 0: a block with none loads none
+      const int hq = it / tiles;
+      const int st = it % kStages;
+      const int row = (first + it % tiles) * kBlockQ;
+      const int bh = by * (kBand ? group : 1) + hq;
+      const int64_t stat_row =
+          static_cast<int64_t>(bh) * ((sq + kBlockQ - 1) / kBlockQ * kBlockQ);
+      mbar_arrive_expect_tx(full(st), L::kQTile + L::kDoTile + 2 * kStatBytes);
+      for (int h = 0; h < L::kBoxes; ++h) {
+        tma_load_3d(s_q(st) + h * kQBox, &q_map, full(st), h * kBoxCols, row,
+                    bh);
+        if (h < L::kVBoxes)
+          tma_load_3d(s_do(st) + h * kQBox, &do_map, full(st), h * kBoxCols,
+                      row, bh);
+      }
+      bulk_load(base + stat_off(st), lse2 + stat_row + row, kStatBytes,
+                full(st));
+      bulk_load(base + stat_off(st) + kStatBytes, delta + stat_row + row,
+                kStatBytes, full(st));
+    };
+    if (threadIdx.x == 0 && n_iter > 0) {
+      mbar_arrive_expect_tx(kv_full, L::kKTile + L::kVTile);
+      for (int h = 0; h < L::kBoxes; ++h) {
+        tma_load_3d(s_k + h * kKBox, &k_map, kv_full, h * kBoxCols, key0,
+                    bh_kv);
+        if (h < L::kVBoxes)
+          tma_load_3d(s_v + h * kKBox, &v_map, kv_full, h * kBoxCols, key0,
+                      bh_kv);
+      }
+      for (int it = 0; it < kStages && it < total; ++it) load_tile(it);
+    }
+    const int t = threadIdx.x % 128;
+    const int warp = t / 32;
+    const int g = (t % 32) / 4;
+    const int qd = t % 4;
+    const int krow = wg * kWgKeys + warp * 16 + g;  // and krow + 8, in the block
+    const float scale2 = scale * kLog2e;
+    // the same for every thread of the warpgroup
+    const bool ragged = key0 + wg * kWgKeys + kWgKeys > sk;
+
+    float dk_acc[D / 2];
+    float dv_acc[DV / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk_acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < DV / 2; ++i) dv_acc[i] = 0.f;
+
+    if (n_iter > 0) mbar_wait(kv_full, 0);
+    for (int hq = 0; hq < heads; ++hq) {
+      for (int n = 0; n < n_iter; ++n) {
+        const int it = hq * n_iter + n;  // the ring's count
+        const int st = it % kStages;
+        const int q0 = (i0 + n) * kBlockQ;
+        mbar_wait(full(st), (it / kStages) & 1);
+        const uint32_t lse_t = base + stat_off(st);
+        const uint32_t delta_t = lse_t + kStatBytes;
+        const uint32_t ds = s_ds(it & 1);
+        // K's base, opaque to the compiler once a tile: the descriptors
+        // made from it are made again each tile, not kept live across the
+        // loop
+        uint32_t kb = s_k;
+        asm volatile("" : "+r"(kb));
+        float s[32];   // S^T, then P^T
+        float dp[32];  // dP^T, then dS^T
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < D / 16; ++ks) {
+          const uint32_t ck =
+              (ks / 4) * kKBox + (ks % 4) * 32 + wg * kWgKeys * 128;
+          const uint32_t cq = (ks / 4) * kQBox + (ks % 4) * 32;
+          wgmma_ss_m64n64k16<0, 0>(s, sw128_desc(kb + ck, 16, 1024),
+                                   sw128_desc(s_q(st) + cq, 16, 1024), ks > 0);
+        }
+        wgmma_commit();
+#pragma unroll
+        for (int ks = 0; ks < DV / 16; ++ks) {
+          const uint32_t cv =
+              (ks / 4) * kKBox + (ks % 4) * 32 + wg * kWgKeys * 128;
+          const uint32_t co = (ks / 4) * kQBox + (ks % 4) * 32;
+          wgmma_ss_m64n64k16<0, 0>(dp, sw128_desc(kb + L::kV + cv, 16, 1024),
+                                   sw128_desc(s_do(st) + co, 16, 1024),
+                                   ks > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();  // S^T; dP^T may still run
+        fence_operands(s);
+        // p = 2^(s * scale * log2e - lse): query 8jj + 2qd + e of the tile
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const float2 lv = ld_shared_f32x2(lse_t + 4 * (8 * jj + 2 * qd));
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            s[4 * jj + 2 * h] = exp2_ftz(fmaf(s[4 * jj + 2 * h], scale2, -lv.x));
+            s[4 * jj + 2 * h + 1] =
+                exp2_ftz(fmaf(s[4 * jj + 2 * h + 1], scale2, -lv.y));
+          }
+        }
+        if (ragged || (causal && q0 < key0 + wg * kWgKeys + kWgKeys - 1) ||
+            (kBand && window > 0 &&
+             q0 + kBlockQ - key0 - wg * kWgKeys > window)) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int kr = key0 + krow + 8 * h;
+#pragma unroll
+            for (int jj = 0; jj < 8; ++jj) {
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int c = q0 + 8 * jj + 2 * qd + e;
+                if (kr >= sk || (causal && c < kr) ||
+                    (kBand && window > 0 && c - kr >= window))
+                  s[4 * jj + 2 * h + e] = 0.f;
+              }
+            }
+          }
+        }
+        wgmma_wait<0>();
+        fence_operands(dp);
+        // dS^T = P^T * (dP^T - delta) in f32, then P^T and dS^T in bf16 as
+        // the A fragments of the k16 steps over the tile's 64 queries
+        uint32_t pf[4][4], dsf[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+          for (int jj = 2 * kk; jj < 2 * kk + 2; ++jj) {
+            const float2 dl = ld_shared_f32x2(delta_t + 4 * (8 * jj + 2 * qd));
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              dp[4 * jj + 2 * h] =
+                  s[4 * jj + 2 * h] * (dp[4 * jj + 2 * h] - dl.x);
+              dp[4 * jj + 2 * h + 1] =
+                  s[4 * jj + 2 * h + 1] * (dp[4 * jj + 2 * h + 1] - dl.y);
+            }
+          }
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            pf[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+            dsf[kk][r] = pack_bf16(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1]);
+          }
+        }
+        // dS^T to shared memory in the 128-byte swizzle, as below
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = krow + 8 * h;
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj)
+            st_shared_s32(ds + r * 128 + ((jj ^ (r & 7)) << 4) + 4 * qd,
+                          static_cast<int>(dsf[jj / 2][(jj % 2) * 2 + h]));
+        }
+        fence_proxy_async();
+
+        fence_operands(dv_acc);
+        fence_operands(dk_acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_rs_m64n128k16(dv_acc, pf[kk], sw128_desc(
+              s_do(st) + kk * 16 * 128, kQBox, 1024));
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_rs_m64n192k16(dk_acc, dsf[kk], sw128_desc(
+              s_q(st) + kk * 16 * 128, kQBox, 1024));
+        wgmma_commit();
+        // dQ's accumulator takes these registers
+        wgmma_wait<0>();
+        fence_operands(dv_acc);
+        fence_operands(dk_acc);
+        fence_operands(pf);
+        fence_operands(dsf);
+        // both warpgroups' halves of dS^T are in shared memory, and both
+        // are done with the tile's stage
+        named_sync(kDsBar, kConsumers);
+        if (threadIdx.x == 0 && it + kStages < total) load_tile(it + kStages);
+        const int lane = t % 32;
+        const uint32_t stage =
+            base + L::kDq + wg * kDqTile + warp * (kDqTile / 4);
+#pragma unroll
+        for (int part = 0; part < 2; ++part) {
+          // box wg over the block's 128 keys, then the last box over the
+          // warpgroup's own 64 keys (the other warpgroup adds the rest)
+          const int box = part == 0 ? wg : L::kBoxes - 1;
+          const int kk0 = part == 0 ? 0 : wg * (kWgKeys / 16);
+          const int steps = part == 0 ? kBlockK / 16 : kWgKeys / 16;
+          float dq[32];
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < steps; ++kk)
+            wgmma_ss_m64n64k16<1, 1>(
+                dq, sw128_desc(ds + (kk0 + kk) * 16 * 128, kQBox, 1024),
+                sw128_desc(kb + box * kKBox + (kk0 + kk) * 16 * 128, kKBox,
+                           1024),
+                kk > 0);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_operands(dq);
+          // each warp stages its 16 rows and adds them with one bulk
+          // reduction, as below; its 4 KB are free once the last one has
+          // read them
+          if (lane == 0) bulk_wait_read<0>();
+          __syncwarp();
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj)
+            st_shared_f32x4(stage + (jj * 32 + lane) * 16, dq[4 * jj],
+                            dq[4 * jj + 1], dq[4 * jj + 2], dq[4 * jj + 3]);
+          fence_proxy_async();
+          __syncwarp();
+          if (lane == 0) {
+            const int64_t bh = static_cast<int64_t>(blockIdx.y) * heads + hq;
+            const int64_t tile =
+                (bh * (sq_pad / kBlockQ) + i0 + n) * L::kBoxes + box;
+            bulk_reduce_add_f32(dq_acc + tile * (kDqTile / 4) + warp * 1024,
+                                stage, kDqTile / 4);
+            bulk_commit();
+          }
+        }
+      }
+    }
+
+    // the last reductions have landed before the block's shared memory goes
+    if (t % 32 == 0) bulk_wait<0>();
+    // dK * scale and dV in bf16
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int kr = key0 + krow + 8 * h;
+      if (kr >= sk) continue;
+      bf16* const dk_row = dk + bh_kv * dk_st.bh + kr * dk_st.row + 2 * qd;
+      bf16* const dv_row = dv + bh_kv * dv_st.bh + kr * dv_st.row + 2 * qd;
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i)
+        *reinterpret_cast<uint32_t*>(dk_row + i * 8) =
+            pack_bf16(dk_acc[4 * i + 2 * h] * scale,
+                      dk_acc[4 * i + 2 * h + 1] * scale);
+#pragma unroll
+      for (int i = 0; i < DV / 8; ++i)
+        *reinterpret_cast<uint32_t*>(dv_row + i * 8) =
+            pack_bf16(dv_acc[4 * i + 2 * h], dv_acc[4 * i + 2 * h + 1]);
     }
   } else {
     // consumers: warpgroup wg owns keys key0 + 64wg .. key0 + 64wg + 63
@@ -541,7 +839,7 @@ flash_bwd_post(const float* __restrict__ dq_acc, bf16* __restrict__ dq,
 // the operands' strides, in the C entry point's order
 enum { kStQ, kStK, kStV, kStOut, kStDout, kStDq, kStDk, kStDv, kOperands };
 
-template <int D, bool kBand>
+template <int D, int DV, bool kBand>
 int launch(int64_t bh, int64_t sq, int64_t sk, cudaStream_t s, const void* q,
            const void* k, const void* v, const bf16* out, const bf16* dout,
            const float* m, const float* l, bf16* dq, bf16* dk, bf16* dv,
@@ -551,31 +849,41 @@ int launch(int64_t bh, int64_t sq, int64_t sk, cudaStream_t s, const void* q,
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap q_map, do_map, k_map, v_map;
   if (!encode_map(fn, &q_map, q, bh, sq, D, st[kStQ], kBlockQ) ||
-      !encode_map(fn, &do_map, dout, bh, sq, D, st[kStDout], kBlockQ) ||
+      !encode_map(fn, &do_map, dout, bh, sq, DV, st[kStDout], kBlockQ) ||
       !encode_map(fn, &k_map, k, bh / group, sk, D, st[kStK], kBlockK) ||
-      !encode_map(fn, &v_map, v, bh / group, sk, D, st[kStV], kBlockK))
+      !encode_map(fn, &v_map, v, bh / group, sk, DV, st[kStV], kBlockK))
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t sq_pad = (sq + kBlockQ - 1) / kBlockQ * kBlockQ;
   float* lse2 = stats;
   float* delta = stats + bh * sq_pad;
 
   // bh * sq_pad is a multiple of 64, so every block is whole
-  flash_bwd_pre<D><<<static_cast<unsigned>(bh * sq_pad / (256 / (D / 8))),
-                     256, 0, s>>>(out, dout, m, l, lse2, delta, dq_acc,
+  flash_bwd_pre<D, DV><<<static_cast<unsigned>(bh * sq_pad /
+                                                 (256 / (DV / 8))),
+                         256, 0, s>>>(out, dout, m, l, lse2, delta, dq_acc,
                                   static_cast<int>(sq),
                                   static_cast<int>(sq_pad), st[kStOut],
                                   st[kStDout]);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  constexpr int kSmem = Layout<D>::kSmem;
-  err = cudaFuncSetAttribute(flash_bwd<D, kBand>,
+  constexpr int kSmem = Layout<D, DV>::kSmem;
+  static_assert(kSmem <= 232448, "B3's shared memory exceeds a block's");
+  err = cudaFuncSetAttribute(flash_bwd<D, DV, kBand>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>(bh / group),
-                  static_cast<unsigned>((sk + kBlockK - 1) / kBlockK));
-  flash_bwd<D, kBand><<<grid, kThreads, kSmem, s>>>(
+  // one block per (K/V row, key tile); at split widths the key tiles
+  // run fastest, so the blocks in flight share a few rows' f32 dQ
+  // accumulators, which then stay in L2: at 128 heads of 192 the
+  // accumulator is 1.6 GB, and with the rows fastest every block's bulk
+  // reductions went to device memory (73 of 128 ms at [1, 16384, 128])
+  const unsigned rows = static_cast<unsigned>(bh / group);
+  const unsigned tiles = static_cast<unsigned>((sk + kBlockK - 1) / kBlockK);
+  if (D != DV && rows > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid = D == DV ? dim3(rows, tiles) : dim3(tiles, rows);
+  flash_bwd<D, DV, kBand><<<grid, D == DV ? kThreads : kConsumers, kSmem,
+                            s>>>(
       q_map, do_map, k_map, v_map, lse2, delta, dq_acc, dk, dv,
       static_cast<int>(sq), static_cast<int>(sk), causal, scale, group,
       window, st[kStDk], st[kStDv]);
@@ -600,10 +908,12 @@ int launch(int64_t bh, int64_t sq, int64_t sk, cudaStream_t s, const void* q,
 // bytes): d is contiguous in every operand, and every bf16 base is
 // 16-byte aligned. Workspace: stats f32 [2, bh, sq_pad] and dq_acc f32
 // [bh, sq_pad, d], contiguous, with sq_pad = sq rounded up to a multiple
-// of 64. d is 64 or 128, and the value width `dv` is d: B3 has no split
-// widths (keys wider than values), and no sink gradient, so `sinks` must
-// be null. Every tensor and `stream` are on CUDA device `device`. Returns
-// a cudaError_t.
+// of 64. (d, dv) is (64, 64), (128, 128) or (192, 128): values as wide as
+// keys, or keys 192 wide over values 128 (out, dout and dv at the value
+// width, dq and dk at the key width). B3 has no sink gradient, so `sinks`
+// must be null. `scale` multiplies the scores (the caller's softmax
+// scale). Every tensor and `stream` are on CUDA device `device`. Returns a
+// cudaError_t.
 extern "C" int flash_attention_bwd_bf16(
     const void* q, const void* k, const void* v, const void* out,
     const void* dout, const void* m, const void* l, void* dq, void* dk,
@@ -613,8 +923,7 @@ extern "C" int flash_attention_bwd_bf16(
     void* stream) {
   RowStrides st[kOperands];
   const void* bases[kOperands] = {q, k, v, out, dout, dq, dk, dv};
-  if (dv_width != d || sinks != nullptr ||
-      !read_strides(strides, bases, kOperands, st))
+  if (sinks != nullptr || !read_strides(strides, bases, kOperands, st))
     return static_cast<int>(cudaErrorInvalidValue);
   if (bh <= 0 || sq <= 0 || sk <= 0 || bh > 2147483647 ||
       sq > 2147483647 - kBlockQ || (sk + kBlockK - 1) / kBlockK > 65535 ||
@@ -636,12 +945,9 @@ extern "C" int flash_attention_bwd_bf16(
   float* pacc = static_cast<float*>(dq_acc);
   return dispatch(d, dv_width, group, window, false,
                   [&](auto dim, auto vdim, auto band, int g, int w) {
-    // refused above: no instantiation at split widths
-    if constexpr (decltype(dim)::value != decltype(vdim)::value)
-      return static_cast<int>(cudaErrorInvalidValue);
-    else
-      return launch<decltype(dim)::value, decltype(band)::value>(
-          bh, sq, sk, s, q, k, v, po, pg, pm, pl, pdq, pdk, pdv, pst, pacc,
-          causal, scale, g, w, st);
+    return launch<decltype(dim)::value, decltype(vdim)::value,
+                  decltype(band)::value>(
+        bh, sq, sk, s, q, k, v, po, pg, pm, pl, pdq, pdk, pdv, pst, pacc,
+        causal, scale, g, w, st);
   });
 }

@@ -15,9 +15,10 @@ hop it arrived on. Beyond the TPU kernel (which has none of these), K/V
 may hold fewer heads than Q (grouped-query attention: query row r reads
 K/V row r // group), the causal mask may take a sliding window of W keys,
 V may be narrower than Q and K (split widths, as MLA's prefill form and
-MiMo-V2-Flash have: keys 192 wide over values 128 wide), and each query
+MiMo-V2-Flash have: keys 192 wide over values 128 wide), each query
 row may add a learned sink logit to its softmax's denominator (attention
-sinks: a logit with no value).
+sinks: a logit with no value), and the softmax scale may be the caller's
+(``scale=``, as MLA's YaRN rule sets it) in place of D**-0.5.
 
 ``flash_attention_blocks`` launches kernel B2 (``csrc/flash_attention.cu``)
 on a CUDA tensor and runs its plain version,
@@ -57,8 +58,8 @@ NEG_INF = -1e30
 # kernel B2's (q and k width, v width) pairs and input type: one
 # instantiation each, (192, 128) the band one alone
 KERNEL_HEAD_DIMS = ((64, 64), (128, 128), (192, 128))
-# kernel B3's: no split widths, and no sink gradient
-B3_HEAD_DIMS = ((64, 64), (128, 128))
+# kernel B3's: (192, 128) the band one alone, as B2's; no sink gradient
+B3_HEAD_DIMS = ((64, 64), (128, 128), (192, 128))
 KERNEL_DTYPE = torch.bfloat16
 
 _SIGNATURES = {
@@ -122,6 +123,7 @@ def flash_attention_blocks_reference(
         q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q_offset: int, k_offset: int, causal: bool = True,
         q_tile: int = 256, chunk: int = 512, window=None, sinks=None,
+        scale=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of ``_flash_kernel``: each Q tile streams K/V chunks
     through the f32 online softmax. Scores are scaled before the mask, so
@@ -132,12 +134,12 @@ def flash_attention_blocks_reference(
     j with i - W < j <= i. v may be narrower than q and k; out takes v's
     width. ``sinks`` (f32 [BH]) folds each row's sink logit into its
     denominator after the last chunk: one more column of the softmax,
-    with no value."""
+    with no value. ``scale`` multiplies the scores (None: D**-0.5)."""
     bh, sq, d = q.shape
     bkv, sk = k.shape[:2]
     dv = v.shape[2]
     g = bh // bkv if bkv else 1
-    scale = 1.0 / math.sqrt(d)
+    scale = _scale(d, scale)
     out = _empty_in_layout(q, dv)
     m_all = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
     l_all = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
@@ -181,6 +183,21 @@ def flash_attention_blocks_reference(
     return out, m_all, l_all
 
 
+def _scale(d: int, scale) -> float:
+    """The softmax scale a call uses: D**-0.5, computed as ``1 /
+    sqrt(D)``, where ``scale`` is None, else ``scale`` as a float
+    (``_contract`` has refused any other)."""
+    return 1.0 / math.sqrt(d) if scale is None else float(scale)
+
+
+def _scaled(d: int, scale) -> bool:
+    """Whether ``scale`` differs from the default D**-0.5 (as ``d **
+    -0.5`` or ``1 / sqrt(d)``, which differ in the last bit at some D):
+    counted in ``.scaled_calls``."""
+    return scale is not None and float(scale) not in (d ** -0.5,
+                                                      _scale(d, None))
+
+
 def _disagree(where: str, why: str, named) -> ValueError:
     return ValueError(f"{where}: shapes disagree: {why}: " + " ".join(
         f"{name}{tuple(t.shape)}" for name, t in named))
@@ -188,15 +205,21 @@ def _disagree(where: str, why: str, named) -> ValueError:
 
 def _contract(where: str, q, k, v, rest=(), causal: bool = True,
               window=None, share_dtype: bool = True,
-              sinks=None) -> Tuple[int, int]:
+              sinks=None, scale=None) -> Tuple[int, int]:
     """The one contract of kernels B2 and B3 and of their plain versions:
     q [BH, Sq, D], k [BH / group, Sk, D] and v [BH / group, Sk, DV] on one
     CPU or CUDA device; ``rest`` names B3's further tensors (out and dout
     [BH, Sq, DV], m and l [BH, Sq]); on a card, bf16 with (D, DV) in
     ``KERNEL_HEAD_DIMS`` and f32 m and l; a ``window`` is a whole number
-    of keys >= 1 under the causal mask; ``sinks`` f32 [BH]. Returns
-    (group, window), the window 0 where there is none. It runs on every
-    call, so messages are built only to raise."""
+    of keys >= 1 under the causal mask; ``sinks`` f32 [BH]; a ``scale``
+    None or a finite positive real number. Returns (group, window), the
+    window 0 where there is none. It runs on every call, so messages are
+    built only to raise."""
+    if scale is not None and (
+            isinstance(scale, bool) or not isinstance(scale, numbers.Real)
+            or not math.isfinite(scale) or scale <= 0):
+        raise ValueError(f"{where}: scale must be a finite positive float, "
+                         f"got {scale!r:.200}")
     named = (("q", q), ("k", k), ("v", v), *rest)
     for name, t in named:
         if not isinstance(t, torch.Tensor):
@@ -261,11 +284,13 @@ def b2_persistent(window: int) -> bool:
     return window > 0
 
 
-def _count(fn, group: int, window: int, split: bool, sink: bool) -> None:
+def _count(fn, group: int, window: int, split: bool, sink: bool,
+           scaled: bool) -> None:
     fn.window_calls += window > 0
     fn.grouped_calls += group > 1
     fn.split_calls += split
     fn.sink_calls += sink
+    fn.scaled_calls += scaled
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -303,6 +328,7 @@ def flash_attention_blocks(
         q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q_offset: int, k_offset: int, causal: bool = True,
         q_tile: int = 256, chunk: int = 512, window=None, sinks=None,
+        scale=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Fused attend of q against (k, v) with positional causal masking.
 
@@ -315,8 +341,10 @@ def flash_attention_blocks(
     only) leaves the query at global position i the keys j with i - W < j
     <= i. ``sinks`` (f32 [BH]) adds e^sinks[r] to row r's denominator, a
     logit with no value, once a call: l * e^m = e^sink + sum_j e^s_j, so
-    blocks with a sink cannot be merged. A row that sees no key gives
-    out = 0, l = 0 and m = NEG_INF (with a sink, m = sink and l = 1).
+    blocks with a sink cannot be merged. ``scale`` multiplies the scores
+    before the softmax (None: D**-0.5; else a finite positive float). A
+    row that sees no key gives out = 0, l = 0 and m = NEG_INF (with a
+    sink, m = sink and l = 1).
 
     On a CUDA tensor this launches kernel B2 (and counts the launch in
     ``flash_attention_blocks.launches``), which takes bf16 with (D, DV)
@@ -328,21 +356,25 @@ def flash_attention_blocks(
     layout at v's width. At B = 1 the fold of ``flash_attention`` is such
     a view, so no copy is made before B2 and out unfolds to a contiguous
     [1, S, H, DV]. Calls with a window, a group above 1, split widths (DV
-    < D) and sinks are counted in ``.window_calls``, ``.grouped_calls``,
-    ``.split_calls`` and ``.sink_calls`` on both paths; launches that take
-    B2's persistent schedule (``b2_persistent``) in ``.persistent_calls``.
+    < D), sinks and a scale other than D**-0.5 are counted in
+    ``.window_calls``, ``.grouped_calls``, ``.split_calls``,
+    ``.sink_calls`` and ``.scaled_calls`` on both paths; launches that
+    take B2's persistent schedule (``b2_persistent``) in
+    ``.persistent_calls``.
     """
     with span("flash_attention_blocks"):
         group, win = _contract("flash_attention_blocks", q, k, v,
-                               causal=causal, window=window, sinks=sinks)
+                               causal=causal, window=window, sinks=sinks,
+                               scale=scale)
         bh, sq, d = q.shape
         dv = v.shape[2]
         _count(flash_attention_blocks, group, win, dv != d,
-               sinks is not None)
+               sinks is not None, _scaled(d, scale))
         if q.device.type == "cpu":
             return flash_attention_blocks_reference(q, k, v, q_offset,
                                                     k_offset, causal, q_tile,
-                                                    chunk, window, sinks)
+                                                    chunk, window, sinks,
+                                                    scale)
         sk = k.shape[1]
         with span("flash_attention_blocks.align"):
             q, k, v = (_tma_operand(t, flash_attention_blocks)
@@ -360,7 +392,7 @@ def flash_attention_blocks(
                    q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                    out.data_ptr(), m.data_ptr(), l.data_ptr(),
                    bh, sq, sk, d, dv, int(q_offset), int(k_offset),
-                   1 if causal else 0, 1.0 / math.sqrt(d), group, win,
+                   1 if causal else 0, _scale(d, scale), group, win,
                    None if sinks is None else sinks.data_ptr(),
                    _row_strides(q, k, v, out), q.device.index,
                    what="flash attention kernel")
@@ -374,6 +406,7 @@ flash_attention_blocks.window_calls = 0
 flash_attention_blocks.grouped_calls = 0
 flash_attention_blocks.split_calls = 0
 flash_attention_blocks.sink_calls = 0
+flash_attention_blocks.scaled_calls = 0
 flash_attention_blocks.copies = 0
 flash_attention_blocks.persistent_calls = 0
 
@@ -388,7 +421,8 @@ flash_attention_blocks.persistent_calls = 0
 
 
 def flash_bwd_reference(q, k, v, out, m, l, dout, causal: bool,
-                        chunk: int = 512, window=None, sinks=None):
+                        chunk: int = 512, window=None, sinks=None,
+                        scale=None):
     """Plain version of kernel B3: the chunked-recompute backward of
     ``_flash_bwd_rule``, in f32, with cotangents cast back to the input
     dtypes. Grouped K/V rows (``flash_attention_blocks_reference``'s
@@ -396,13 +430,14 @@ def flash_bwd_reference(q, k, v, out, m, l, dout, causal: bool,
     come at q's width, dv at v's. With ``sinks`` the forward's (m, l)
     already hold each row's sink, so P and dS are as without one, and the
     sinks' gradient comes fourth: dsink_r = -sum_i P^sink_i rowsum(dO_i *
-    O_i) over row r's queries, P^sink_i = e^(sink_r - m_i) / l_i."""
+    O_i) over row r's queries, P^sink_i = e^(sink_r - m_i) / l_i.
+    ``scale`` is the forward's (None: D**-0.5)."""
     bh, sq, d = q.shape
     bkv, sk = k.shape[:2]
     dv_width = v.shape[2]
     g = bh // bkv if bkv else 1
     chunk = min(chunk, sk)
-    scale = 1.0 / math.sqrt(d)
+    scale = _scale(d, scale)
     in_dtypes = (q.dtype, k.dtype, v.dtype)
     # compute in f32 like the forward: recomputed P must match the
     # forward's P, not a bf16 quantisation
@@ -441,43 +476,48 @@ def flash_bwd_reference(q, k, v, out, m, l, dout, causal: bool,
 
 
 def flash_bwd(q, k, v, out, m, l, dout, causal: bool, chunk: int = 512,
-              window=None, sinks=None):
+              window=None, sinks=None, scale=None):
     """dq, dk, dv of ``flash_attention_blocks(q, k, v, 0, 0, causal,
-    window=window, sinks=sinks)`` from its (out, m, l) and the upstream
-    gradient ``dout``; dk and dv have k's and v's shape, each summed over
-    its group's query rows; with ``sinks``, their gradient fourth.
+    window=window, sinks=sinks, scale=scale)`` from its (out, m, l) and
+    the upstream gradient ``dout``; dk and dv have k's and v's shape, each
+    summed over its group's query rows; with ``sinks``, their gradient
+    fourth.
 
     On a CUDA tensor this launches kernel B3 (and counts the call in
     ``flash_bwd.launches``), which takes bf16 q, k, v, out and dout with
-    (D, DV) in ``B3_HEAD_DIMS`` and f32 m and l, and no sinks: split
-    widths or sinks raise ValueError there. ``chunk`` is the plain
-    version's step over keys, used on a CPU tensor, which takes both. B3
-    reads each of q, k, v, out and dout through its own strides, and
-    copies only one it cannot take (``_tma_takes``), counted in
-    ``flash_bwd.copies``; dq, dk and dv come back in q's, k's and v's
-    layouts. At B = 1 the fold of ``flash_attention`` is such a view, so
-    no copy is made before B3 and autograd keeps the gradients it hands
-    each leaf. Calls with a window, a group above 1, split widths and
-    sinks are counted in ``.window_calls``, ``.grouped_calls``,
-    ``.split_calls`` and ``.sink_calls`` on both paths.
+    (D, DV) in ``B3_HEAD_DIMS`` (keys 192 wide over values 128 among
+    them) and f32 m and l, and no sinks: sinks raise ValueError there.
+    ``chunk`` is the plain version's step over keys, used on a CPU
+    tensor, which takes sinks too. B3 reads each of q, k, v, out and dout
+    through its own strides, and copies only one it cannot take
+    (``_tma_takes``), counted in ``flash_bwd.copies``; dq, dk and dv come
+    back in q's, k's and v's layouts. At B = 1 the fold of
+    ``flash_attention`` is such a view, so no copy is made before B3 and
+    autograd keeps the gradients it hands each leaf. Calls with a window,
+    a group above 1, split widths, sinks and a scale other than D**-0.5
+    are counted in ``.window_calls``, ``.grouped_calls``,
+    ``.split_calls``, ``.sink_calls`` and ``.scaled_calls`` on both
+    paths.
     """
     with span("flash_bwd"):
         group, win = _contract(
             "flash_bwd", q, k, v, (("out", out), ("m", m), ("l", l),
                                    ("dout", dout)),
-            causal=causal, window=window, share_dtype=False, sinks=sinks)
+            causal=causal, window=window, share_dtype=False, sinks=sinks,
+            scale=scale)
         bh, sq, d = q.shape
         dv_width = v.shape[2]
-        _count(flash_bwd, group, win, dv_width != d, sinks is not None)
+        _count(flash_bwd, group, win, dv_width != d, sinks is not None,
+               _scaled(d, scale))
         if q.device.type == "cpu":
             return flash_bwd_reference(q, k, v, out, m, l, dout, causal,
-                                       chunk, window, sinks)
+                                       chunk, window, sinks, scale)
         if (d, dv_width) not in B3_HEAD_DIMS or sinks is not None:
             raise ValueError(
-                f"flash_bwd: kernel B3 takes neither split widths nor sinks "
-                f"(head dims (q/k {d}, v {dv_width}), sinks "
-                f"{'given' if sinks is not None else 'none'}); it takes "
-                f"{B3_HEAD_DIMS} and no sinks on the card")
+                f"flash_bwd: kernel B3 takes no sinks (no sink gradient) "
+                f"and head dims {B3_HEAD_DIMS} on the card; got head dims "
+                f"(q/k {d}, v {dv_width}), sinks "
+                f"{'given' if sinks is not None else 'none'}")
         sk = k.shape[1]
         if bh == 0 or sq == 0 or sk == 0:
             return tuple(torch.zeros_like(t) for t in (q, k, v))
@@ -498,8 +538,8 @@ def flash_bwd(q, k, v, out, m, l, dout, causal: bool, chunk: int = 512,
                    q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                    dout.data_ptr(), m.data_ptr(), l.data_ptr(), dq.data_ptr(),
                    dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
-                   dq_acc.data_ptr(), bh, sq, sk, d, d, 1 if causal else 0,
-                   1.0 / math.sqrt(d), group, win, None,
+                   dq_acc.data_ptr(), bh, sq, sk, d, dv_width,
+                   1 if causal else 0, _scale(d, scale), group, win, None,
                    _row_strides(q, k, v, out, dout, dq, dk, dv),
                    q.device.index,
                    what="flash attention backward kernel")
@@ -512,43 +552,49 @@ flash_bwd.window_calls = 0
 flash_bwd.grouped_calls = 0
 flash_bwd.split_calls = 0
 flash_bwd.sink_calls = 0
+flash_bwd.scaled_calls = 0
 flash_bwd.copies = 0
 
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, sinks):
+    def forward(ctx, q, k, v, causal, window, sinks, scale):
         out, m, l = flash_attention_blocks(q, k, v, 0, 0, causal=causal,
-                                           window=window, sinks=sinks)
+                                           window=window, sinks=sinks,
+                                           scale=scale)
         ctx.save_for_backward(q, k, v, out, m, l, sinks)
         ctx.causal = causal
         ctx.window = window
+        ctx.scale = scale
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, m, l, sinks = ctx.saved_tensors
         grads = flash_bwd(q, k, v, out, m, l, dout, ctx.causal,
-                          window=ctx.window, sinks=sinks)
+                          window=ctx.window, sinks=sinks, scale=ctx.scale)
         return (*grads[:3], None, None,
-                grads[3] if sinks is not None else None)
+                grads[3] if sinks is not None else None, None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window=None,
-                    sinks=None) -> torch.Tensor:
+                    sinks=None, scale=None) -> torch.Tensor:
     """Single-device flash attention, [B, S, H, D] layout (the drop-in for
     ``reference_attention``). k and v may hold fewer heads, [B, S, Hkv, D]
     with H a multiple of Hkv: query head h reads KV head h // (H // Hkv),
     transformers' ``repeat_kv``, without repeating K/V in memory. v may be
-    narrower than q and k, [B, S, Hkv, DV]: the output is [B, S, H, DV]
-    and the scale stays D**-0.5. ``window=W`` (causal only) leaves the
-    query at position i the keys j with i - W < j <= i, W keys with
-    itself: transformers' sliding-window causal mask. ``sinks`` (f32 [H])
-    adds head h's learned logit, with no value, to each of its rows'
-    softmax as one more column, the form of transformers' gpt-oss eager
-    attention. Differentiable: the backward pass is ``flash_bwd`` (kernel
-    B3 on the card, which takes neither split widths nor sinks)."""
+    narrower than q and k, [B, S, Hkv, DV]: the output is [B, S, H, DV].
+    ``scale`` multiplies the scores before the softmax: None is D**-0.5,
+    D the width of q and k; else a finite positive float, such as the
+    scale MLA's YaRN rule gives (DeepSeek-V3: 192**-0.5 * mscale**2).
+    ``window=W`` (causal only) leaves the query at position i the keys j
+    with i - W < j <= i, W keys with itself: transformers' sliding-window
+    causal mask. ``sinks`` (f32 [H]) adds head h's learned logit, with no
+    value, to each of its rows' softmax as one more column, the form of
+    transformers' gpt-oss eager attention. Differentiable: the backward
+    pass is ``flash_bwd`` (kernel B3 on the card, which takes split widths
+    and any scale but no sinks)."""
     with span("flash_attention"):
         if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
             raise ValueError(f"flash_attention: q, k, v must be [B, S, H, "
@@ -567,7 +613,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             qf, kf, vf = fold(q), fold(k), fold(v)
             # b-major, as the rows: a view at B = 1
             sf = None if sinks is None else sinks.expand(B, -1).reshape(-1)
-        out = _FlashAttention.apply(qf, kf, vf, causal, window, sf)
+        out = _FlashAttention.apply(qf, kf, vf, causal, window, sf, scale)
         del qf, kf, vf, sf
         with span("flash_attention.unfold"):
             return out.reshape(B, H, S, DV).transpose(1, 2)
